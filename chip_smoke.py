@@ -12,7 +12,15 @@ result line:
 3. Kernels against their plain versions on the card, within
    ``0.02 * max|plain|`` (the JAX tests' tolerance): K1 (the rendered
    blocked module, split-K and not), K2 (the rendered single-block module),
-   K3 (``kernels.scaled_gemm.scaled_gemm``), K4 (``naive_scaled_gemm``).
+   K3 (``kernels.scaled_gemm.scaled_gemm``), K4 (``naive_scaled_gemm``),
+   K5 (``kernels.flash_attention.flash_attention``, bf16, (1, 16, 2, S, 128)
+   for S in 128, 1000, 2048: causal, causal with window 256, unmasked) and
+   K6 (``decode_attention``, bf16, 8 rows of a (8, 4096, 2, 128) cache read
+   through its strides: ragged kv_len with 4096 and one above 4096, and
+   short ones from 1 as a case of their own).  For K5 and K6 the max is
+   taken per output row (one batch, head and query): a row that averages
+   thousands of keys is a few hundredths in size, and a scale set by the
+   largest row of the output would let a lost key block or warp pass.
 4. Main paths, each with the launch counts set to 0 just before it and
    read just after:
    a. the campaign: ``repro_torch.launch.scientist.run_campaign`` for 2
@@ -23,14 +31,35 @@ result line:
       (K2), the Hopper form of the TPU's VMEM refusal;
    c. the library calls: ``kernels.ops.scaled_gemm`` on the 18 challenge
       shapes (K3) and ``naive_scaled_gemm`` at the sizes it fits (K4),
-      against the oracle ``kernels.ref.scaled_gemm``.
-5. Times: each kernel, its plain version and the library seed (f32
-   dequant + ``torch.matmul``) at one main-path shape, with CUDA events,
-   beside the least time the card could take.
+      against the oracle ``kernels.ref.scaled_gemm``;
+   d. serving: ``serve.Engine`` on qwen2.5-3b at full width and depth
+      (36 layers, random bf16 weights from seed 0), 8 slots of 4096
+      positions, 16 requests with prompt lengths drawn from
+      ``numpy.random.default_rng(0)`` in [100, 2000] and 32 new tokens
+      each; K5 must launch 36 times per prompt and K6 36 times per tick.
+      After the counts are read, the first request and the last (which
+      lands in a reused slot) are decoded again alone, ``api.prefill`` at
+      batch 1 and then ``api.decode_step`` fed the engine's tokens: each
+      engine token's logit may fall short of that run's largest by at
+      most ``0.02 * max|logits|``.  Then two windows traced with torch.profiler
+      (3 decode ticks of 8 slots, one prefill of the longest prompt) give
+      the device's busy share and its top kernels;
+   e. the model on the card against the model on the CPU: qwen2.5-3b at
+      full width with 2 layers, one set of bf16 weights, one 333-token
+      prompt; the prefill's last-token logits and those of 4 decode steps
+      (fed the CPU's greedy tokens) within ``0.02 * max|cpu|``.
+5. Times: each kernel and its plain version at one main-path shape, with
+   CUDA events, beside the least time the card could take and one library
+   call computing the same function: the library seed (f32 dequant +
+   ``torch.matmul``) for K1-K4, ``scaled_dot_product_attention`` for K5
+   (at the longest prompt of 4d) and K6 (at 4d's cache and final lengths,
+   one launch per layer in turn, as a decode tick reads the cache).
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
 """
+import copy
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -42,15 +71,21 @@ TOL = 0.02                  # x max|plain|, as tests/test_kernels_scaled_gemm.py
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, same source
 CSRC = "src/repro_torch/csrc/scaled_gemm.cu"
+FA_CSRC = "src/repro_torch/csrc/flash_attention.cu"
 REPLACES = {
     "K1a": "src/repro/core/codegen.py:183",
     "K1b": "src/repro/core/codegen.py:204",
     "K2": "src/repro/core/codegen.py:79",
     "K3": "src/repro/kernels/scaled_gemm.py:145",
     "K4": "src/repro/kernels/scaled_gemm.py:182",
+    "K5": "src/repro/kernels/flash_attention.py:128",
+    "K6": "src/repro/kernels/flash_attention.py:232",
 }
 COUNTER = {"K1a": "blocked_splitk", "K1b": "blocked", "K2": "monolith",
-           "K3": "scaled_gemm", "K4": "naive_scaled_gemm"}
+           "K3": "scaled_gemm", "K4": "naive_scaled_gemm",
+           "K5": "flash_attention", "K6": "decode_attention"}
+SERVE = dict(slots=8, max_seq=4096, requests=16, max_new=32,
+             prompt_lens=(100, 2000))
 
 
 def fail(msg: str) -> None:
@@ -73,9 +108,14 @@ def main() -> int:
                                          SEED_MXU, SEED_NAIVE)
     from repro_torch.core.evaluator import EvaluationService
     from repro_torch.core.population import BENCH_CONFIGS_18
+    import numpy as np
+    from repro_torch import configs
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import scaled_gemm as sg
     from repro_torch.launch.scientist import report, run_campaign
+    from repro_torch.models import api
+    from repro_torch.serve import Engine, Request
 
     dev = torch.device("cuda")
     fp8, i8, bf16, f32 = (torch.float8_e4m3fn, torch.int8, torch.bfloat16,
@@ -110,6 +150,7 @@ def main() -> int:
     ]
     sources = [sg.kernel_source(**v) for v in variants]
     sources.append("#define STORAGE_INT8 0\n" + _build.read_csrc("scaled_gemm.cu"))
+    sources.append(_build.read_csrc("flash_attention.cu"))
     t0 = time.perf_counter()
     _build.build_many(sources)
     print(f"build: {len(sources)} sources with nvcc in parallel, "
@@ -195,6 +236,64 @@ def main() -> int:
         fail("K4 at 1024x1536x7168 was not refused")
     except _build.LaunchRefusedError as e:
         print(f"K4 at M,N,K=1024,1536,7168 refused as expected: {e}")
+
+    def row_err(got, want):
+        """Worst output row (one batch, head and query) of the attention
+        kernels: max over D of |got - plain| over max over D of |plain|."""
+        want = want.float()
+        err = (got.float() - want).abs().amax(-1)
+        return (err / want.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+    def attn_inputs(b, hq, hkv, s, d, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(shape, generator=g, device=dev).to(bf16)
+                for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+    def cache_inputs(lens, seed, smax=4096):
+        """q (B, 16, 128) and a (B, Smax, 2, 128) cache as the engine keeps
+        it, handed to K6 as (B, Hkv, S, D) views; kv_len int32."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        b = len(lens)
+        ck, cv = (torch.randn(b, smax, 2, 128, generator=g, device=dev).to(bf16)
+                  for _ in range(2))
+        q = torch.randn(b, 16, 128, generator=g, device=dev).to(bf16)
+        return (q, ck.transpose(1, 2), cv.transpose(1, 2),
+                torch.tensor(lens, dtype=torch.int32, device=dev))
+
+    attn_cases = []
+    for s_len in (128, 1000, 2048):
+        for causal, window in ((True, None), (True, 256), (False, None)):
+            attn_cases.append((
+                "K5", f"S={s_len} causal={causal} window={window}",
+                lambda q, k, v, c=causal, w=window: fa.flash_attention(
+                    q, k, v, causal=c, window=w),
+                lambda q, k, v, c=causal, w=window: fa.attention_reference(
+                    q, k, v, causal=c, window=w),
+                attn_inputs(1, 16, 2, s_len, 128, s_len)))
+    attn_cases.append((
+        "K6", "B=8 Smax=4096 kv_len ragged", fa.decode_attention,
+        fa.decode_attention_reference,
+        cache_inputs([4096, 4100, 1718, 218, 2704, 1272, 1991, 64], 1)))
+    attn_cases.append((
+        "K6", "B=8 Smax=4096 kv_len short", fa.decode_attention,
+        fa.decode_attention_reference,
+        cache_inputs([1, 2, 3, 5, 31, 32, 33, 63], 5)))
+    for name, what, kernel, plain, args in attn_cases:
+        before = sum(_build.LAUNCHES.values())
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        launched = sum(_build.LAUNCHES.values()) - before
+        err = row_err(got, plain(*args))
+        worst[name] = max(worst.get(name, 0.0), err)
+        print(f"{name} {what:34s} bf16 worst row max_abs_err/max|plain| "
+              f"{err:.2e} launches {launched}")
+        if launched != 1:
+            fail(f"{name} {what}: {launched} launches, expected 1")
+        if not err <= TOL:
+            fail(f"{name} {what}: error {err:.3e} above {TOL}")
+    q, k, v, lens = cache_inputs([0, 7], 2)
+    if fa.decode_attention(q, k, v, lens)[0].any():
+        fail("K6 with kv_len = 0 did not give zeros")
     print("kernels: " + ", ".join(f"{n} (max err {e:.2e})"
                                   for n, e in worst.items()))
 
@@ -282,6 +381,174 @@ def main() -> int:
         if n < 1:
             fail(f"{name} was not launched on its path")
 
+    # --------------------------------------------------------- 4d. serving
+    qwen = configs.get_config("qwen2.5-3b")
+    t0 = time.perf_counter()
+    model = api.init_params(qwen, 0)
+    torch.cuda.synchronize()
+    print(f"qwen2.5-3b: {qwen.param_count() / 1e9:.2f} B parameters "
+          f"(param_count) initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    lo, hi = SERVE["prompt_lens"]
+    prompts = [rng.integers(0, qwen.vocab, int(rng.integers(lo, hi + 1)))
+               .astype(np.int32) for _ in range(SERVE["requests"])]
+    engine = Engine(qwen, model, slots=SERVE["slots"],
+                    max_seq=SERVE["max_seq"])
+    for i, prompt in enumerate(prompts):
+        engine.submit(Request(rid=i, prompt=prompt, max_new=SERVE["max_new"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    finished = engine.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = dict(_build.LAUNCHES)
+    ticks = len(engine.decode_s)
+    new_tokens = sum(len(r.generated) for r in finished)
+    pf_ms = [1e3 * x for x in engine.prefill_s]
+    dec_ms = [1e3 * x for x in engine.decode_s]
+    print(f"serve: {len(finished)} requests, prompt lengths "
+          f"{[len(pr) for pr in prompts]}, {new_tokens} new tokens in "
+          f"{serve_s:.2f} s = {new_tokens / serve_s:.1f} tokens/s, "
+          f"{ticks} decode ticks; launches {serve_launches}")
+    print(f"serve: ms per prefill mean {np.mean(pf_ms):.2f} median "
+          f"{np.median(pf_ms):.2f} max {max(pf_ms):.2f} (first "
+          f"{pf_ms[0]:.2f}); ms per decode tick mean {np.mean(dec_ms):.3f} "
+          f"median {np.median(dec_ms):.3f}; prompt tokens/s "
+          f"{sum(map(len, prompts)) / sum(engine.prefill_s):.0f}")
+    print(f"serve: card memory in use {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if len(finished) != SERVE["requests"] or any(
+            len(r.generated) != SERVE["max_new"]
+            or not all(0 <= t < qwen.vocab_padded for t in r.generated)
+            for r in finished):
+        fail("serving did not return max_new valid tokens for every request")
+    path_launches["K5"] = serve_launches.get(COUNTER["K5"], 0)
+    path_launches["K6"] = serve_launches.get(COUNTER["K6"], 0)
+    if path_launches["K5"] != qwen.n_layers * SERVE["requests"]:
+        fail(f"K5 launched {path_launches['K5']} times, expected "
+             f"{qwen.n_layers} x {SERVE['requests']}")
+    if path_launches["K6"] != qwen.n_layers * ticks:
+        fail(f"K6 launched {path_launches['K6']} times, expected "
+             f"{qwen.n_layers} x {ticks} ticks")
+    longest = max(map(len, prompts))
+    final_lens = engine.cache["len"].clamp(max=SERVE["max_seq"]).tolist()
+    cache_k = engine.cache["k"].clone()      # (L, B, Smax, Hkv, dh)
+    cache_v = engine.cache["v"].clone()
+
+    # the engine's tokens against the same model run alone: batch 1, its
+    # own cache, fed the engine's tokens.  Both run the same kernels, but
+    # the engine's GEMMs have 8 rows, so their sums may round otherwise and
+    # a near-tie may flip; a wrong slot copy or cache write would instead
+    # pick tokens whose logits lie far below the top (~4 sigma over 152k).
+    def alone(req):
+        toks = torch.as_tensor(req.prompt, device=dev).long()[None]
+        logits, cache = api.prefill(model, qwen, {"tokens": toks},
+                                    SERVE["max_seq"])
+        gaps, exact = [], 0
+        for step, tok in enumerate(req.generated):
+            ref_logits = logits[0].float()
+            gaps.append(((ref_logits.max() - ref_logits[tok])
+                         / ref_logits.abs().max()).item())
+            exact += int(ref_logits.argmax().item() == tok)
+            if step + 1 < len(req.generated):
+                logits, cache = api.decode_step(
+                    model, qwen, cache, torch.tensor([tok], device=dev))
+        return max(gaps), exact
+
+    by_id = {r.rid: r for r in finished}
+    for rid in (0, SERVE["requests"] - 1):
+        gap, exact = alone(by_id[rid])
+        print(f"serve: request {rid} (slot {by_id[rid].slot}) alone at batch "
+              f"1: {exact}/{SERVE['max_new']} engine tokens are its argmax, "
+              f"largest shortfall {gap:.2e} of max|logits|")
+        if not gap <= TOL:
+            fail(f"request {rid}: an engine token's logit is {gap:.3e} of "
+                 f"max|logits| below the top when run alone")
+
+    # where the time goes: traced windows after the counted run (the
+    # profiler slows the host, so these walls are not the times above)
+    def trace(what, fn):
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.ones(1, device=dev).add_(1)   # the profiler's own start-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy, end, by_name = 0.0, float("-inf"), {}
+        for a, b, name in spans:
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+            by_name[name[:48]] = by_name.get(name[:48], 0.0) + (b - a)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"trace {what}: {len(spans)} kernels, device busy "
+              f"{busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall under "
+              f"the profiler ({100 * busy / wall_us:.1f}%); top: "
+              + "; ".join(f"{n} {t / 1e3:.2f} ms" for n, t in top))
+
+    for i, prompt in enumerate(prompts[:SERVE["slots"]]):
+        engine.submit(Request(rid=100 + i, prompt=prompt, max_new=8))
+    engine.tick()                      # admits all slots
+    trace("3 decode ticks, 8 slots",
+          lambda: [engine.tick() for _ in range(3)])
+    longest_toks = torch.as_tensor(max(prompts, key=len), device=dev).long()
+    trace(f"prefill of {longest} tokens", lambda: api.prefill(
+        model, qwen, {"tokens": longest_toks[None]}, SERVE["max_seq"]))
+    del engine, model, finished
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- 4e. card against the CPU
+    # bf16 keeps 8 bits: the two paths round at other points (the kernels'
+    # bf16 probabilities, the card's and the CPU's matmul sum orders), so a
+    # hidden value may differ by a bf16 step (2^-8 relative) per rounding;
+    # two layers compound a few such steps, well inside the kernels' own
+    # 0.02 * max|plain|.
+    small = dataclasses.replace(qwen, n_layers=2)
+    card_model = api.init_params(small, 1)
+    cpu_model = copy.deepcopy(card_model).to("cpu")
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, small.vocab, 333)).long()[None]
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    sides = {}
+    for side, mdl, where in (("card", card_model, dev),
+                             ("cpu", cpu_model, torch.device("cpu"))):
+        logits, cache = api.prefill(mdl, small, {"tokens": prompt.to(where)},
+                                    512)
+        sides[side] = [logits.float().cpu()]
+        sides[side + "_cache"] = cache
+    errs = [rel_err(sides["card"][0], sides["cpu"][0])]
+    for _ in range(4):
+        tok = sides["cpu"][-1].argmax(-1)
+        for side, mdl, where in (("card", card_model, dev),
+                                 ("cpu", cpu_model, torch.device("cpu"))):
+            logits, sides[side + "_cache"] = api.decode_step(
+                mdl, small, sides[side + "_cache"], tok.to(where))
+            sides[side].append(logits.float().cpu())
+        errs.append(rel_err(sides["card"][-1], sides["cpu"][-1]))
+    agree = sum(int(a.argmax() == b.argmax())
+                for a, b in zip(sides["card"], sides["cpu"]))
+    print(f"card vs cpu, qwen2.5-3b full width 2 layers, 333-token prompt: "
+          f"max|card - cpu| / max|cpu| of the logits, prefill then 4 decode "
+          f"steps: {' '.join(f'{e:.2e}' for e in errs)}; argmax agrees "
+          f"{agree}/5; launches {dict(_build.LAUNCHES)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not all(np.isfinite(x.numpy()).all() for x in sides["card"]):
+        fail("the card's logits are not finite")
+    if max(errs) > TOL:
+        fail(f"card and CPU logits differ by {max(errs):.3e} > {TOL}")
+    del card_model, cpu_model, sides
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------ 5. times
     def time_ms(fn, args, reps):
         fn(*args)
@@ -331,6 +598,60 @@ def main() -> int:
         print(f"{name} at M,N,K={m},{n},{k}: {ms:.4f} ms (plain {plain_ms:.4f}, "
               f"library seed {library_ms:.4f}, bound {max(t_bytes, t_ops):.4f} "
               f"by {records[-1]['bound_by']})")
+
+    # K5 at the longest prompt of 4d.  K6 at 4d's cache, read through its
+    # strides as the engine reads it, with the lengths the slots ended at;
+    # one launch per layer in turn, as a decode tick reads the cache, so
+    # each launch finds its 33 MB cold in the 50 MB L2 as on the path.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = attn_inputs(1, 16, 2, longest, 128, 3)
+    pairs = longest * (longest + 1) // 2          # causal (q, k) pairs
+    k5 = dict(sets=[(q, k, v)], kernel=fa.flash_attention,
+              plain=fa.attention_reference,
+              library=lambda q, k, v: sdpa(q, k, v, is_causal=True,
+                                           enable_gqa=True),
+              ops=4 * 16 * 128 * pairs, nbytes=(2 * 16 + 2 * 2) * longest * 128 * 2,
+              shape=f"B,Hq,Hkv,S,D=1,16,2,{longest},128 causal")
+    g = torch.Generator(device=dev).manual_seed(4)
+    q6 = torch.randn(SERVE["slots"], 16, 128, generator=g, device=dev).to(bf16)
+    lens6 = torch.tensor(final_lens, dtype=torch.int32, device=dev)
+    k6_sets = [(q6, cache_k[i].transpose(1, 2), cache_v[i].transpose(1, 2),
+                lens6) for i in range(qwen.n_layers)]
+    valid = (torch.arange(SERVE["max_seq"], device=dev)[None, :]
+             < lens6[:, None])[:, None, None, :]
+    k6 = dict(sets=k6_sets, kernel=fa.decode_attention,
+              plain=fa.decode_attention_reference,
+              library=lambda q, k, v, n: sdpa(q[:, :, None], k, v,
+                                              attn_mask=valid,
+                                              enable_gqa=True)[:, :, 0],
+              ops=4 * 16 * 128 * sum(final_lens),
+              nbytes=(sum(final_lens) * 2 * 128 * 2 * 2
+                      + 2 * SERVE["slots"] * 16 * 128 * 2 + 4 * SERVE["slots"]),
+              shape=f"B,Hq,Hkv,Smax,D=8,16,2,4096,128 kv_len={final_lens}")
+    def time_sets(fn, sets, reps):
+        return time_ms(lambda: [fn(*a) for a in sets], (), reps) / len(sets)
+
+    for name, t in (("K5", k5), ("K6", k6)):
+        got = t["kernel"](*t["sets"][0])
+        want = t["plain"](*t["sets"][0])
+        lib_err = row_err(t["library"](*t["sets"][0]), want)
+        ms = time_sets(t["kernel"], t["sets"], 20)
+        plain_ms = time_sets(t["plain"], t["sets"], 3)
+        library_ms = time_sets(t["library"], t["sets"], 20)
+        t_bytes = t["nbytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = t["ops"] / PEAK_OPS["bfloat16"] * 1e3
+        records.append({
+            "name": name, "route": "cuda", "source": FA_CSRC,
+            "replaces": REPLACES[name], "launches": path_launches[name],
+            "max_abs_err": (got.float() - want.float()).abs().max().item(),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms, "shape": t["shape"],
+            "row_rel_err": row_err(got, want),
+            "library_row_rel_err": lib_err})
+        print(f"{name} at {t['shape']}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+              f"sdpa {library_ms:.4f}, bound {max(t_bytes, t_ops):.4f} by "
+              f"{records[-1]['bound_by']})")
     torch.cuda.synchronize()
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -125,15 +125,16 @@ def build_many(sources) -> list:
         return [f.result() for f in futs]
 
 
-def bind(lib: ctypes.CDLL, name: str, n_ptr: int, n_int: int):
-    """The C function ``name(ptr * n_ptr, int * n_int, stream)``.  Every
-    pointer and the stream travel as ``c_void_p``: ctypes would otherwise
-    pass a 32-bit int and cut the address."""
+def bind(lib: ctypes.CDLL, name: str, n_ptr: int, n_int: int,
+         n_float: int = 0):
+    """The C function ``name(ptr * n_ptr, int * n_int, float * n_float,
+    stream)``.  Every pointer and the stream travel as ``c_void_p``: ctypes
+    would otherwise pass a 32-bit int and cut the address."""
     fn = getattr(lib, name)   # ctypes caches it: set the types once
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
     return fn
 
 
@@ -151,11 +152,11 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def launch(counter: str, lib: ctypes.CDLL, fn_name: str, ptrs, ints,
-           device) -> None:
+           device, floats=()) -> None:
     """Call one exported launcher on the current stream, raise on a
     non-zero return, and count the launch under ``counter``."""
-    fn = bind(lib, fn_name, len(ptrs), len(ints))
-    rc = fn(*ptrs, *ints, stream_ptr(device))
+    fn = bind(lib, fn_name, len(ptrs), len(ints), len(floats))
+    rc = fn(*ptrs, *ints, *floats, stream_ptr(device))
     check(lib, rc, f"{counter} launch")
     LAUNCHES[counter] += 1
 

@@ -1,13 +1,18 @@
-"""Public wrapper around the block-scaled GEMM kernel.
+"""Public wrappers around the kernels.
 
-Port of ``repro.kernels.ops`` (``scaled_gemm`` only; attention and SSD
-come in later slices).  The wrapper pads arbitrary shapes to kernel-legal
-ones and slices the result back.  Tiles are clamped to the problem's
-dimensions rounded up to 128, as ``repro.core.codegen`` clamps them, so
-every tile stays a multiple of the quantization block.
+Port of ``repro.kernels.ops`` (``scaled_gemm``, ``attention`` and
+``decode_attention``; the SSD scan comes in a later slice), without the
+``use_pallas`` and ``interpret`` switches: a CPU tensor runs the kernel's
+plain version, a CUDA tensor the kernel.  ``scaled_gemm`` pads arbitrary
+shapes to kernel-legal ones and slices the result back.  Tiles are clamped
+to the problem's dimensions rounded up to 128, as ``repro.core.codegen``
+clamps them, so every tile stays a multiple of the quantization block.
+The attention kernels mask any S themselves and pick their own tiles, so
+the JAX wrappers' ``block_q``/``block_k`` have no counterpart here.
 """
 from __future__ import annotations
 
+from . import flash_attention as _fa
 from . import scaled_gemm as _sg
 from .ref import SCALE_BLOCK, pad_to
 
@@ -34,3 +39,13 @@ def scaled_gemm(a, b, a_scale, b_scale, *, block_m: int = 128,
                           block_k=block_k, grid_order=grid_order,
                           scale_application=scale_application)
     return out[:m, :n]
+
+
+def attention(q, k, v, *, causal=True, window=None):
+    """q: (B, Hq, S, D); k, v: (B, Hkv, S, D) — K5."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k, v, kv_len):
+    """q: (B, Hq, D); k, v: (B, Hkv, S, D); kv_len: (B,) — K6."""
+    return _fa.decode_attention(q, k, v, kv_len)

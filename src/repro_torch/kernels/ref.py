@@ -1,9 +1,10 @@
-"""Plain PyTorch reference oracles for the block-scaled GEMM.
+"""Plain PyTorch reference oracles.
 
 Port of ``repro.kernels.ref`` (``scaled_gemm``, ``quantize_blockwise``,
-``quantize_blockwise_2d``).  These are the ground truth of the tests and of
-the EvaluationService's correctness check; they are written for clarity,
-not speed.
+``quantize_blockwise_2d``, ``attention``, ``decode_attention``; the SSD
+oracle comes with its kernel).  These are the ground truth of the tests and
+of the EvaluationService's correctness check; they are written for
+clarity, not speed, and run in f32 with TF32 off.
 
 On 128-aligned shapes the quantizers produce the same bytes and scales as
 the JAX package.  They also accept a ragged last block (two of the 18
@@ -13,6 +14,7 @@ entries, computed over a zero-padded last block.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 import torch.nn.functional as F
@@ -109,3 +111,50 @@ def quantize_blockwise_2d(x: torch.Tensor, dtype=torch.float8_e4m3fn):
                         torch.ones_like(max_abs))
     q = (xr / scale[:, None, :, None]).to(dtype)
     return q.reshape(kb * SCALE_BLOCK, nb * SCALE_BLOCK)[:k, :n].contiguous(), scale
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (prefill) — plain softmax attention oracle
+# ---------------------------------------------------------------------------
+def attention(q, k, v, *, causal=True, window=None, scale=None):
+    """q: (B, Hq, S, D), k/v: (B, Hkv, S, D) with Hq % Hkv == 0 (GQA).
+
+    window: if not None, token i attends to [i-window+1, i] only (local attn).
+    """
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf = q.float().reshape(b, hkv, hq // hkv, s, d)
+    pos = torch.arange(s, device=q.device)
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    with full_f32_matmul():
+        logits = torch.einsum("bhgsd,bhtd->bhgst", qf, k.float()) * scale
+        probs = torch.softmax(logits.masked_fill(~mask, -math.inf), dim=-1)
+        out = torch.einsum("bhgst,bhtd->bhgsd", probs, v.float())
+    return out.reshape(b, hq, s, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode attention (single new token vs a long KV cache)
+# ---------------------------------------------------------------------------
+def decode_attention(q, k, v, kv_len, *, scale=None):
+    """q: (B, Hq, D); k/v: (B, Hkv, S, D); kv_len: (B,) valid prefix lengths.
+
+    As in the JAX oracle, a row with ``kv_len = 0`` sees no key and gives
+    NaN (the kernels give zeros there)."""
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf = q.float().reshape(b, hkv, hq // hkv, d)
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < kv_len.to(q.device)[:, None])
+    with full_f32_matmul():
+        logits = torch.einsum("bhgd,bhtd->bhgt", qf, k.float()) * scale
+        logits = logits.masked_fill(~valid[:, None, None, :], -math.inf)
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhgt,bhtd->bhgd", probs, v.float())
+    return out.reshape(b, hq, d).to(q.dtype)

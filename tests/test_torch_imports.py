@@ -48,7 +48,9 @@ def test_rendered_kernel_modules_import_only_the_port():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.core, repro_torch.kernels, "
-            "repro_torch.launch.scientist\n"
+            "repro_torch.launch.scientist, repro_torch.models, "
+            "repro_torch.models.convert, repro_torch.serve, "
+            "repro_torch.launch.serve, repro_torch.configs\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
