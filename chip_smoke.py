@@ -17,10 +17,19 @@ result line:
    for S in 128, 1000, 2048: causal, causal with window 256, unmasked) and
    K6 (``decode_attention``, bf16, 8 rows of a (8, 4096, 2, 128) cache read
    through its strides: ragged kv_len with 4096 and one above 4096, and
-   short ones from 1 as a case of their own).  For K5 and K6 the max is
-   taken per output row (one batch, head and query): a row that averages
-   thousands of keys is a few hundredths in size, and a scale set by the
-   largest row of the output would let a lost key block or warp pass.
+   short ones from 1 as a case of their own) and K7 (``kernels.ssd.ssd``,
+   H 80, P 64, N 128, x, B and C bf16, dt and A f32: B 1 S 1920 and B 1
+   S 1999 (ragged) with the model's decay, A from -1 to -16, x, B and C
+   read as views of one tensor as the model hands them over; B 2 S 1000
+   with a slow decay, dt * |A| in [1e-3, 1e-2] per token, whose state
+   crosses all 16 chunks).  For K5, K6 and K7 the max is taken per output
+   row (one batch, head and query; for K7's y one batch, token and head,
+   for its final state one batch, head and state index): a row that
+   averages thousands of keys is a few hundredths in size, and a scale
+   set by the largest row of the output would let a lost key block or
+   warp pass.  K7's rows whose plain maximum is below 1e-6 of the
+   output's are skipped and counted; the slow-decay case must also tell
+   the final state apart from one that dropped the carry.
 4. Main paths, each with the launch counts set to 0 just before it and
    read just after:
    a. the campaign: ``repro_torch.launch.scientist.run_campaign`` for 2
@@ -41,19 +50,31 @@ result line:
       lands in a reused slot) are decoded again alone, ``api.prefill`` at
       batch 1 and then ``api.decode_step`` fed the engine's tokens: each
       engine token's logit may fall short of that run's largest by at
-      most ``0.02 * max|logits|``.  Then two windows traced with torch.profiler
-      (3 decode ticks of 8 slots, one prefill of the longest prompt) give
-      the device's busy share and its top kernels;
+      most ``0.02 * max|logits|``.  Then two windows traced with
+      torch.profiler (3 decode ticks of 8 slots, one prefill of the
+      longest prompt) give the device's busy share and its top kernels;
    e. the model on the card against the model on the CPU: qwen2.5-3b at
       full width with 2 layers, one set of bf16 weights, one 333-token
       prompt; the prefill's last-token logits and those of 4 decode steps
-      (fed the CPU's greedy tokens) within ``0.02 * max|cpu|``.
+      (fed the CPU's greedy tokens) within ``0.02 * max|cpu|``;
+   f. serving mamba2-2.7b as in d (64 layers, d 2560, 80 heads of 64,
+      state 128) with the same traces; K7 must launch 64 times per prompt
+      (decode is plain PyTorch).  The witness's replay decodes 8 rows,
+      each the request's own cache, so that its GEMMs sum as the engine's
+      do: random-weight mamba2 amplifies the other rounding of a batch-1
+      GEMM far past the gate.  That the batch-1 replay parts from it by
+      rounding alone is checked layer by layer: decoded side by side,
+      layer 0's state may differ by one bf16 step of its max and layer
+      1's by four (the deeper layers' and the batch-1 tokens' shortfall
+      are printed);
+   g. mamba2-2.7b on the card against the CPU, as in e.
 5. Times: each kernel and its plain version at one main-path shape, with
    CUDA events, beside the least time the card could take and one library
    call computing the same function: the library seed (f32 dequant +
    ``torch.matmul``) for K1-K4, ``scaled_dot_product_attention`` for K5
    (at the longest prompt of 4d) and K6 (at 4d's cache and final lengths,
-   one launch per layer in turn, as a decode tick reads the cache).
+   one launch per layer in turn, as a decode tick reads the cache); K7
+   at the longest prompt of 4f, for which no library call exists.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
@@ -72,6 +93,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, same source
 CSRC = "src/repro_torch/csrc/scaled_gemm.cu"
 FA_CSRC = "src/repro_torch/csrc/flash_attention.cu"
+SSD_CSRC = "src/repro_torch/csrc/ssd.cu"
 REPLACES = {
     "K1a": "src/repro/core/codegen.py:183",
     "K1b": "src/repro/core/codegen.py:204",
@@ -80,10 +102,11 @@ REPLACES = {
     "K4": "src/repro/kernels/scaled_gemm.py:182",
     "K5": "src/repro/kernels/flash_attention.py:128",
     "K6": "src/repro/kernels/flash_attention.py:232",
+    "K7": "src/repro/kernels/ssd.py:77",
 }
 COUNTER = {"K1a": "blocked_splitk", "K1b": "blocked", "K2": "monolith",
            "K3": "scaled_gemm", "K4": "naive_scaled_gemm",
-           "K5": "flash_attention", "K6": "decode_attention"}
+           "K5": "flash_attention", "K6": "decode_attention", "K7": "ssd"}
 SERVE = dict(slots=8, max_seq=4096, requests=16, max_new=32,
              prompt_lens=(100, 2000))
 
@@ -113,6 +136,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import scaled_gemm as sg
+    from repro_torch.kernels import ssd
     from repro_torch.launch.scientist import report, run_campaign
     from repro_torch.models import api
     from repro_torch.serve import Engine, Request
@@ -151,6 +175,7 @@ def main() -> int:
     sources = [sg.kernel_source(**v) for v in variants]
     sources.append("#define STORAGE_INT8 0\n" + _build.read_csrc("scaled_gemm.cu"))
     sources.append(_build.read_csrc("flash_attention.cu"))
+    sources.append(_build.read_csrc("ssd.cu"))
     t0 = time.perf_counter()
     _build.build_many(sources)
     print(f"build: {len(sources)} sources with nvcc in parallel, "
@@ -294,6 +319,77 @@ def main() -> int:
     q, k, v, lens = cache_inputs([0, 7], 2)
     if fa.decode_attention(q, k, v, lens)[0].any():
         fail("K6 with kv_len = 0 did not give zeros")
+
+    def ssd_row_err(got, want, what):
+        """Worst row of an SSD output (y: one batch, token and head; the
+        state: one batch, head and state index): max over P of
+        |got - plain| over max over P of |plain|.  Rows whose plain
+        maximum is below 1e-6 of the output's are skipped and counted."""
+        want = want.float()
+        den = want.abs().amax(-1)
+        keep = den >= 1e-6 * den.max()
+        err = (got.float() - want).abs().amax(-1) / den.clamp_min(1e-30)
+        skipped = int((~keep).sum())
+        if skipped:
+            print(f"K7 {what}: {skipped} of {keep.numel()} rows skipped "
+                  "(plain max below 1e-6 of the output's)")
+        return err[keep].max().item()
+
+    def ssd_inputs(bsz, s, seed, slow=False, view=True):
+        """H 80, P 64, N 128.  With ``view``, x, B and C are views into one
+        (B, S, H*P + 2N) tensor, the layout the model hands K7.  The
+        model's decay: A from -1 to -16, dt = softplus(N(0, 1)); slow:
+        dt * |A| in [1e-3, 1e-2] per token."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        h, p, n = 80, 64, 128
+        if view:
+            xbc = torch.randn(bsz, s, h * p + 2 * n, generator=g,
+                              device=dev).to(bf16)
+            x = xbc[..., :h * p].reshape(bsz, s, h, p)
+            b, c = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+        else:
+            x = torch.randn(bsz, s, h, p, generator=g, device=dev).to(bf16)
+            b, c = (torch.randn(bsz, s, n, generator=g, device=dev).to(bf16)
+                    for _ in range(2))
+        if slow:
+            a = -torch.linspace(2e-3, 1e-2, h, device=dev)
+            dt = torch.rand(bsz, s, h, generator=g, device=dev) * 0.5 + 0.5
+        else:
+            a = -torch.linspace(1.0, 16.0, h, device=dev)
+            dt = torch.nn.functional.softplus(
+                torch.randn(bsz, s, h, generator=g, device=dev))
+        return x, dt, a, b, c
+
+    ssd_cases = [("B=1 S=1920 model decay", ssd_inputs(1, 1920, 7)),
+                 ("B=1 S=1999 ragged", ssd_inputs(1, 1999, 8)),
+                 ("B=2 S=1000 slow decay", ssd_inputs(2, 1000, 9, slow=True,
+                                                      view=False))]
+    for what, args in ssd_cases:
+        before = sum(_build.LAUNCHES.values())
+        y, st = ssd.ssd(*args)
+        torch.cuda.synchronize()
+        launched = sum(_build.LAUNCHES.values()) - before
+        y_want, st_want = ssd.ssd_reference(*args)
+        y_err = ssd_row_err(y, y_want, what + " y")
+        st_err = ssd_row_err(st, st_want, what + " state")
+        worst["K7"] = max(worst.get("K7", 0.0), y_err, st_err)
+        print(f"K7 {what:34s} worst row max_abs_err/max|plain|: y {y_err:.2e}"
+              f", final state {st_err:.2e}; launches {launched}")
+        if launched != 1:
+            fail(f"K7 {what}: {launched} launches, expected 1")
+        if not (y_err <= TOL and st_err <= TOL):
+            fail(f"K7 {what}: error y {y_err:.3e}, state {st_err:.3e} "
+                 f"above {TOL}")
+    # the last chunk's tokens alone: the final state a scan would give that
+    # dropped the carry, which the slow-decay case must tell apart
+    x, dt, a, b, c = ssd_cases[2][1]
+    tail = [v[:, -ssd.CHUNK:] for v in (x, dt, b, c)]
+    lost = ssd_row_err(ssd.ssd_reference(*tail[:2], a, *tail[2:])[1],
+                       ssd.ssd_reference(x, dt, a, b, c)[1], "no carry")
+    print(f"K7 slow decay: a scan that dropped the carry would miss the final"
+          f" state by {lost:.2e} of a row (the gate is {TOL})")
+    if not lost > 10 * TOL:
+        fail("the slow-decay case does not hold the carry to account")
     print("kernels: " + ", ".join(f"{n} (max err {e:.2e})"
                                   for n, e in worst.items()))
 
@@ -381,92 +477,134 @@ def main() -> int:
         if n < 1:
             fail(f"{name} was not launched on its path")
 
-    # --------------------------------------------------------- 4d. serving
-    qwen = configs.get_config("qwen2.5-3b")
-    t0 = time.perf_counter()
-    model = api.init_params(qwen, 0)
-    torch.cuda.synchronize()
-    print(f"qwen2.5-3b: {qwen.param_count() / 1e9:.2f} B parameters "
-          f"(param_count) initialised on the card in "
-          f"{time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
-    lo, hi = SERVE["prompt_lens"]
-    prompts = [rng.integers(0, qwen.vocab, int(rng.integers(lo, hi + 1)))
-               .astype(np.int32) for _ in range(SERVE["requests"])]
-    engine = Engine(qwen, model, slots=SERVE["slots"],
-                    max_seq=SERVE["max_seq"])
-    for i, prompt in enumerate(prompts):
-        engine.submit(Request(rid=i, prompt=prompt, max_new=SERVE["max_new"]))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    finished = engine.run()
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    serve_launches = dict(_build.LAUNCHES)
-    ticks = len(engine.decode_s)
-    new_tokens = sum(len(r.generated) for r in finished)
-    pf_ms = [1e3 * x for x in engine.prefill_s]
-    dec_ms = [1e3 * x for x in engine.decode_s]
-    print(f"serve: {len(finished)} requests, prompt lengths "
-          f"{[len(pr) for pr in prompts]}, {new_tokens} new tokens in "
-          f"{serve_s:.2f} s = {new_tokens / serve_s:.1f} tokens/s, "
-          f"{ticks} decode ticks; launches {serve_launches}")
-    print(f"serve: ms per prefill mean {np.mean(pf_ms):.2f} median "
-          f"{np.median(pf_ms):.2f} max {max(pf_ms):.2f} (first "
-          f"{pf_ms[0]:.2f}); ms per decode tick mean {np.mean(dec_ms):.3f} "
-          f"median {np.median(dec_ms):.3f}; prompt tokens/s "
-          f"{sum(map(len, prompts)) / sum(engine.prefill_s):.0f}")
-    print(f"serve: card memory in use {torch.cuda.memory_allocated() / 2**30:.2f}"
-          f" GiB, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if len(finished) != SERVE["requests"] or any(
-            len(r.generated) != SERVE["max_new"]
-            or not all(0 <= t < qwen.vocab_padded for t in r.generated)
-            for r in finished):
-        fail("serving did not return max_new valid tokens for every request")
-    path_launches["K5"] = serve_launches.get(COUNTER["K5"], 0)
-    path_launches["K6"] = serve_launches.get(COUNTER["K6"], 0)
-    if path_launches["K5"] != qwen.n_layers * SERVE["requests"]:
-        fail(f"K5 launched {path_launches['K5']} times, expected "
-             f"{qwen.n_layers} x {SERVE['requests']}")
-    if path_launches["K6"] != qwen.n_layers * ticks:
-        fail(f"K6 launched {path_launches['K6']} times, expected "
-             f"{qwen.n_layers} x {ticks} ticks")
-    longest = max(map(len, prompts))
-    final_lens = engine.cache["len"].clamp(max=SERVE["max_seq"]).tolist()
-    cache_k = engine.cache["k"].clone()      # (L, B, Smax, Hkv, dh)
-    cache_v = engine.cache["v"].clone()
+    # ------------------------------------------------ 4d-4g. serving, helpers
+    def serve(cfg, label):
+        """Serve SERVE's workload on ``cfg`` at full width with random bf16
+        weights from seed 0; print what it took.  The launch counts are set
+        to 0 just before ``engine.run`` and read just after."""
+        t0 = time.perf_counter()
+        model = api.init_params(cfg, 0)
+        torch.cuda.synchronize()
+        print(f"{label}: {cfg.param_count() / 1e9:.2f} B parameters "
+              f"(param_count) initialised on the card in "
+              f"{time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(0)
+        lo, hi = SERVE["prompt_lens"]
+        prompts = [rng.integers(0, cfg.vocab, int(rng.integers(lo, hi + 1)))
+                   .astype(np.int32) for _ in range(SERVE["requests"])]
+        engine = Engine(cfg, model, slots=SERVE["slots"],
+                        max_seq=SERVE["max_seq"])
+        for i, prompt in enumerate(prompts):
+            engine.submit(Request(rid=i, prompt=prompt,
+                                  max_new=SERVE["max_new"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        finished = engine.run()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        ticks = len(engine.decode_s)
+        new_tokens = sum(len(r.generated) for r in finished)
+        pf_ms = [1e3 * x for x in engine.prefill_s]
+        dec_ms = [1e3 * x for x in engine.decode_s]
+        print(f"serve {label}: {len(finished)} requests, prompt lengths "
+              f"{[len(pr) for pr in prompts]}, {new_tokens} new tokens in "
+              f"{serve_s:.2f} s = {new_tokens / serve_s:.1f} tokens/s, "
+              f"{ticks} decode ticks; launches {launches}")
+        print(f"serve {label}: ms per prefill mean {np.mean(pf_ms):.2f} "
+              f"median {np.median(pf_ms):.2f} max {max(pf_ms):.2f} (first "
+              f"{pf_ms[0]:.2f}); ms per decode tick mean {np.mean(dec_ms):.3f}"
+              f" median {np.median(dec_ms):.3f}; prompt tokens/s "
+              f"{sum(map(len, prompts)) / sum(engine.prefill_s):.0f}")
+        print(f"serve {label}: card memory in use "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if len(finished) != SERVE["requests"] or any(
+                len(r.generated) != SERVE["max_new"]
+                or not all(0 <= t < cfg.vocab_padded for t in r.generated)
+                for r in finished):
+            fail(f"{label}: serving did not return max_new valid tokens for "
+                 "every request")
+        return model, engine, prompts, finished, launches, ticks
 
-    # the engine's tokens against the same model run alone: batch 1, its
-    # own cache, fed the engine's tokens.  Both run the same kernels, but
-    # the engine's GEMMs have 8 rows, so their sums may round otherwise and
-    # a near-tie may flip; a wrong slot copy or cache write would instead
-    # pick tokens whose logits lie far below the top (~4 sigma over 152k).
-    def alone(req):
+    # the engine's tokens against the same model run alone: its own cache
+    # from a batch-1 prefill, fed the engine's tokens, decoded at ``rows``
+    # rows, every row this request.  A wrong slot copy or cache write would
+    # pick tokens whose logits lie far below the top (~4 sigma over the
+    # vocabulary).
+    def replay(model, cfg, req, rows):
+        """Yield (row 0's logits, cache) before each of req's tokens."""
         toks = torch.as_tensor(req.prompt, device=dev).long()[None]
-        logits, cache = api.prefill(model, qwen, {"tokens": toks},
+        logits, cache = api.prefill(model, cfg, {"tokens": toks},
                                     SERVE["max_seq"])
-        gaps, exact = [], 0
+        cache = {k: v.repeat_interleave(rows, dim=0 if k == "len" else 1)
+                 for k, v in cache.items()}
         for step, tok in enumerate(req.generated):
-            ref_logits = logits[0].float()
-            gaps.append(((ref_logits.max() - ref_logits[tok])
-                         / ref_logits.abs().max()).item())
-            exact += int(ref_logits.argmax().item() == tok)
+            yield logits[0].float(), cache
             if step + 1 < len(req.generated):
                 logits, cache = api.decode_step(
-                    model, qwen, cache, torch.tensor([tok], device=dev))
-        return max(gaps), exact
+                    model, cfg, cache, torch.full((rows,), tok, device=dev))
 
-    by_id = {r.rid: r for r in finished}
-    for rid in (0, SERVE["requests"] - 1):
-        gap, exact = alone(by_id[rid])
-        print(f"serve: request {rid} (slot {by_id[rid].slot}) alone at batch "
-              f"1: {exact}/{SERVE['max_new']} engine tokens are its argmax, "
-              f"largest shortfall {gap:.2e} of max|logits|")
-        if not gap <= TOL:
-            fail(f"request {rid}: an engine token's logit is {gap:.3e} of "
-                 f"max|logits| below the top when run alone")
+    def shortfall(logits, tok):
+        return ((logits.max() - logits[tok]) / logits.abs().max()).item()
+
+    def replayed(finished):
+        by_id = {r.rid: r for r in finished}
+        return [by_id[0], by_id[SERVE["requests"] - 1]]
+
+    def witness(model, cfg, label, finished, rows):
+        for req in replayed(finished):
+            gaps, exact = [], 0
+            for (logits, _), tok in zip(replay(model, cfg, req, rows),
+                                        req.generated):
+                gaps.append(shortfall(logits, tok))
+                exact += int(logits.argmax().item() == tok)
+            print(f"serve {label}: request {req.rid} (slot {req.slot}) "
+                  f"alone, {rows} row(s): {exact}/{SERVE['max_new']} engine "
+                  f"tokens are its argmax, largest shortfall {max(gaps):.2e} "
+                  "of max|logits|")
+            if not max(gaps) <= TOL:
+                fail(f"{label} request {req.rid}: an engine token's logit is "
+                     f"{max(gaps):.3e} of max|logits| below the top when "
+                     "run alone")
+
+    # At one row the GEMMs have other shapes than at the engine's 8 and may
+    # sum in another order.  qwen2.5-3b shrugs that off (its witness runs
+    # at batch 1), but random-weight mamba2-2.7b amplifies it through 64
+    # layers and the recurrence past the witness's gate, so its witness
+    # runs at 8 rows and this check shows that the batch-1 replay parts
+    # from it by rounding: decoded side by side, fed the engine's tokens,
+    # layer 0's state (one GEMM, w_in, before it) may differ by at most one
+    # bf16 step (2^-8 of its max) and layer 1's (three GEMMs before it) by
+    # four.
+    def ssm_drift(model, cfg, label, finished, rows):
+        limits = {0: 2.0**-8, 1: 2.0**-6}
+        shown = [i for i in (0, 1, 2, 4, 8, 16, 32) if i < cfg.n_layers - 1]
+        shown.append(cfg.n_layers - 1)
+        for req in replayed(finished):
+            worst = torch.zeros(cfg.n_layers, device=dev)
+            gaps, exact = [], 0
+            for (l1, c1), (_, c8), tok in zip(
+                    replay(model, cfg, req, 1), replay(model, cfg, req, rows),
+                    req.generated):
+                s1, s8 = c1["state"][:, 0], c8["state"][:, 0]
+                worst = torch.maximum(worst, (s1 - s8).abs().amax((1, 2, 3))
+                                      / s8.abs().amax((1, 2, 3)))
+                gaps.append(shortfall(l1, tok))
+                exact += int(l1.argmax().item() == tok)
+            worst = worst.tolist()
+            print(f"serve {label}: request {req.rid} at 1 row against "
+                  f"{rows}: max|state diff| / max|state| by layer "
+                  + " ".join(f"{i}:{worst[i]:.1e}" for i in shown)
+                  + f"; {exact}/{SERVE['max_new']} engine tokens are the "
+                  f"1-row argmax, largest shortfall {max(gaps):.2e}")
+            for i, limit in limits.items():
+                if not worst[i] <= limit:
+                    fail(f"{label} request {req.rid}: layer {i}'s state at "
+                         f"1 row differs from {rows} rows by {worst[i]:.3e} "
+                         f"of its max > {limit:.3e}")
 
     # where the time goes: traced windows after the counted run (the
     # profiler slows the host, so these walls are not the times above)
@@ -495,59 +633,103 @@ def main() -> int:
               f"the profiler ({100 * busy / wall_us:.1f}%); top: "
               + "; ".join(f"{n} {t / 1e3:.2f} ms" for n, t in top))
 
-    for i, prompt in enumerate(prompts[:SERVE["slots"]]):
-        engine.submit(Request(rid=100 + i, prompt=prompt, max_new=8))
-    engine.tick()                      # admits all slots
-    trace("3 decode ticks, 8 slots",
-          lambda: [engine.tick() for _ in range(3)])
-    longest_toks = torch.as_tensor(max(prompts, key=len), device=dev).long()
-    trace(f"prefill of {longest} tokens", lambda: api.prefill(
-        model, qwen, {"tokens": longest_toks[None]}, SERVE["max_seq"]))
+    def trace_serving(model, cfg, label, engine, prompts):
+        for i, prompt in enumerate(prompts[:SERVE["slots"]]):
+            engine.submit(Request(rid=100 + i, prompt=prompt, max_new=8))
+        engine.tick()                      # admits all slots
+        trace(f"{label}, 3 decode ticks, 8 slots",
+              lambda: [engine.tick() for _ in range(3)])
+        longest_toks = torch.as_tensor(max(prompts, key=len),
+                                       device=dev).long()
+        trace(f"{label}, prefill of {len(longest_toks)} tokens",
+              lambda: api.prefill(model, cfg, {"tokens": longest_toks[None]},
+                                  SERVE["max_seq"]))
+
+    # bf16 keeps 8 bits: the two paths round at other points (the kernels'
+    # bf16 operands, the card's and the CPU's matmul sum orders), so a
+    # hidden value may differ by a bf16 step (2^-8 relative) per rounding;
+    # two layers compound a few such steps, well inside the kernels' own
+    # 0.02 * max|plain|.
+    def card_vs_cpu(cfg, label):
+        small = dataclasses.replace(cfg, n_layers=2)
+        card_model = api.init_params(small, 1)
+        cpu_model = copy.deepcopy(card_model).to("cpu")
+        prompt = torch.from_numpy(np.random.default_rng(1).integers(
+            0, small.vocab, 333)).long()[None]
+        t0 = time.perf_counter()
+        _build.reset_launches()
+        sides = {}
+        for side, mdl, where in (("card", card_model, dev),
+                                 ("cpu", cpu_model, torch.device("cpu"))):
+            logits, cache = api.prefill(mdl, small,
+                                        {"tokens": prompt.to(where)}, 512)
+            sides[side] = [logits.float().cpu()]
+            sides[side + "_cache"] = cache
+        errs = [rel_err(sides["card"][0], sides["cpu"][0])]
+        for _ in range(4):
+            tok = sides["cpu"][-1].argmax(-1)
+            for side, mdl, where in (("card", card_model, dev),
+                                     ("cpu", cpu_model, torch.device("cpu"))):
+                logits, sides[side + "_cache"] = api.decode_step(
+                    mdl, small, sides[side + "_cache"], tok.to(where))
+                sides[side].append(logits.float().cpu())
+            errs.append(rel_err(sides["card"][-1], sides["cpu"][-1]))
+        agree = sum(int(a.argmax() == b.argmax())
+                    for a, b in zip(sides["card"], sides["cpu"]))
+        print(f"card vs cpu, {label} full width 2 layers, 333-token prompt: "
+              f"max|card - cpu| / max|cpu| of the logits, prefill then 4 "
+              f"decode steps: {' '.join(f'{e:.2e}' for e in errs)}; argmax "
+              f"agrees {agree}/5; launches {dict(_build.LAUNCHES)}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not all(np.isfinite(x.numpy()).all() for x in sides["card"]):
+            fail(f"{label}: the card's logits are not finite")
+        if max(errs) > TOL:
+            fail(f"{label}: card and CPU logits differ by {max(errs):.3e} "
+                 f"> {TOL}")
+        del card_model, cpu_model, sides
+        torch.cuda.empty_cache()
+
+    # ---------------------------------------------- 4d. serving qwen2.5-3b
+    qwen = configs.get_config("qwen2.5-3b")
+    model, engine, prompts, finished, serve_launches, ticks = serve(
+        qwen, "qwen2.5-3b")
+    path_launches["K5"] = serve_launches.get(COUNTER["K5"], 0)
+    path_launches["K6"] = serve_launches.get(COUNTER["K6"], 0)
+    if path_launches["K5"] != qwen.n_layers * SERVE["requests"]:
+        fail(f"K5 launched {path_launches['K5']} times, expected "
+             f"{qwen.n_layers} x {SERVE['requests']}")
+    if path_launches["K6"] != qwen.n_layers * ticks:
+        fail(f"K6 launched {path_launches['K6']} times, expected "
+             f"{qwen.n_layers} x {ticks} ticks")
+    longest = max(map(len, prompts))
+    final_lens = engine.cache["len"].clamp(max=SERVE["max_seq"]).tolist()
+    cache_k = engine.cache["k"].clone()      # (L, B, Smax, Hkv, dh)
+    cache_v = engine.cache["v"].clone()
+    witness(model, qwen, "qwen2.5-3b", finished, rows=1)
+    trace_serving(model, qwen, "qwen2.5-3b", engine, prompts)
     del engine, model, finished
     torch.cuda.empty_cache()
 
     # ------------------------------------------- 4e. card against the CPU
-    # bf16 keeps 8 bits: the two paths round at other points (the kernels'
-    # bf16 probabilities, the card's and the CPU's matmul sum orders), so a
-    # hidden value may differ by a bf16 step (2^-8 relative) per rounding;
-    # two layers compound a few such steps, well inside the kernels' own
-    # 0.02 * max|plain|.
-    small = dataclasses.replace(qwen, n_layers=2)
-    card_model = api.init_params(small, 1)
-    cpu_model = copy.deepcopy(card_model).to("cpu")
-    prompt = torch.from_numpy(np.random.default_rng(1).integers(
-        0, small.vocab, 333)).long()[None]
-    t0 = time.perf_counter()
-    _build.reset_launches()
-    sides = {}
-    for side, mdl, where in (("card", card_model, dev),
-                             ("cpu", cpu_model, torch.device("cpu"))):
-        logits, cache = api.prefill(mdl, small, {"tokens": prompt.to(where)},
-                                    512)
-        sides[side] = [logits.float().cpu()]
-        sides[side + "_cache"] = cache
-    errs = [rel_err(sides["card"][0], sides["cpu"][0])]
-    for _ in range(4):
-        tok = sides["cpu"][-1].argmax(-1)
-        for side, mdl, where in (("card", card_model, dev),
-                                 ("cpu", cpu_model, torch.device("cpu"))):
-            logits, sides[side + "_cache"] = api.decode_step(
-                mdl, small, sides[side + "_cache"], tok.to(where))
-            sides[side].append(logits.float().cpu())
-        errs.append(rel_err(sides["card"][-1], sides["cpu"][-1]))
-    agree = sum(int(a.argmax() == b.argmax())
-                for a, b in zip(sides["card"], sides["cpu"]))
-    print(f"card vs cpu, qwen2.5-3b full width 2 layers, 333-token prompt: "
-          f"max|card - cpu| / max|cpu| of the logits, prefill then 4 decode "
-          f"steps: {' '.join(f'{e:.2e}' for e in errs)}; argmax agrees "
-          f"{agree}/5; launches {dict(_build.LAUNCHES)}; "
-          f"{time.perf_counter() - t0:.1f} s")
-    if not all(np.isfinite(x.numpy()).all() for x in sides["card"]):
-        fail("the card's logits are not finite")
-    if max(errs) > TOL:
-        fail(f"card and CPU logits differ by {max(errs):.3e} > {TOL}")
-    del card_model, cpu_model, sides
+    card_vs_cpu(qwen, "qwen2.5-3b")
+
+    # --------------------------------------------- 4f. serving mamba2-2.7b
+    mamba = configs.get_config("mamba2-2.7b")
+    model, engine, m_prompts, finished, serve_launches, ticks = serve(
+        mamba, "mamba2-2.7b")
+    path_launches["K7"] = serve_launches.get(COUNTER["K7"], 0)
+    if path_launches["K7"] != mamba.n_layers * SERVE["requests"]:
+        fail(f"K7 launched {path_launches['K7']} times, expected "
+             f"{mamba.n_layers} x {SERVE['requests']}")
+    m_longest = max(map(len, m_prompts))
+    witness(model, mamba, "mamba2-2.7b", finished, rows=SERVE["slots"])
+    ssm_drift(model, mamba, "mamba2-2.7b", finished, rows=SERVE["slots"])
+    trace_serving(model, mamba, "mamba2-2.7b", engine, m_prompts)
+    del engine, model, finished
     torch.cuda.empty_cache()
+
+    # ------------------------------------------- 4g. card against the CPU
+    card_vs_cpu(mamba, "mamba2-2.7b")
 
     # ------------------------------------------------------------ 5. times
     def time_ms(fn, args, reps):
@@ -652,6 +834,42 @@ def main() -> int:
         print(f"{name} at {t['shape']}: {ms:.4f} ms (plain {plain_ms:.4f}, "
               f"sdpa {library_ms:.4f}, bound {max(t_bytes, t_ops):.4f} by "
               f"{records[-1]['bound_by']})")
+
+    # K7 at the longest prompt of 4f, x, B and C read as views of one
+    # (1, S, H*P + 2N) tensor, as the model hands them over.  No PyTorch
+    # call computes the SSD scan, so there is no library time.  Its bound
+    # counts each input and output once and, in bf16, the multiply-adds of
+    # the chunked form: per head and chunk of c tokens, c(c+1)/2 * (N + P)
+    # inside the chunk and 2*c*N*P for the state.
+    h7, p7, n7 = 80, 64, 128
+    args = ssd_inputs(1, m_longest, 10)
+    got, got_state = ssd.ssd(*args)
+    want, want_state = ssd.ssd_reference(*args)
+    ms = time_ms(ssd.ssd, args, 20)
+    plain_ms = time_ms(ssd.ssd_reference, args, 3)
+    chunks = [min(ssd.CHUNK, m_longest - i)
+              for i in range(0, m_longest, ssd.CHUNK)]
+    macs = h7 * sum(c * (c + 1) // 2 * (n7 + p7) + 2 * c * n7 * p7
+                    for c in chunks)
+    nbytes = (2 * m_longest * h7 * p7 * 2 + m_longest * h7 * 4
+              + 2 * m_longest * n7 * 2 + h7 * 4 + h7 * n7 * p7 * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * macs / PEAK_OPS["bfloat16"] * 1e3
+    records.append({
+        "name": "K7", "route": "cuda", "source": SSD_CSRC,
+        "replaces": REPLACES["K7"], "launches": path_launches["K7"],
+        "max_abs_err": (got.float() - want.float()).abs().max().item(),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+        "shape": f"B,S,H,P,N=1,{m_longest},{h7},{p7},{n7} model decay",
+        "row_rel_err": ssd_row_err(got, want, "phase 5 y"),
+        "state_row_rel_err": ssd_row_err(got_state, want_state,
+                                         "phase 5 state")})
+    print(f"K7 at {records[-1]['shape']}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+          f"library none, bound {max(t_bytes, t_ops):.4f} by "
+          f"{records[-1]['bound_by']}: {nbytes / 1e6:.1f} MB, "
+          f"{2 * macs / 1e9:.2f} GFLOP)")
     torch.cuda.synchronize()
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

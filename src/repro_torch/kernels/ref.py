@@ -1,8 +1,7 @@
 """Plain PyTorch reference oracles.
 
 Port of ``repro.kernels.ref`` (``scaled_gemm``, ``quantize_blockwise``,
-``quantize_blockwise_2d``, ``attention``, ``decode_attention``; the SSD
-oracle comes with its kernel).  These are the ground truth of the tests and
+``quantize_blockwise_2d``, ``attention``, ``decode_attention``, ``ssd``).  These are the ground truth of the tests and
 of the EvaluationService's correctness check; they are written for
 clarity, not speed, and run in f32 with TF32 off.
 
@@ -158,3 +157,34 @@ def decode_attention(q, k, v, kv_len, *, scale=None):
         probs = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhgt,bhtd->bhgd", probs, v.float())
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality) — sequential-scan oracle
+# ---------------------------------------------------------------------------
+def ssd(x, dt, a, b, c, *, d_skip=None):
+    """Sequential (exact) SSM scan, in f32.
+
+    x : (B, S, H, P)   inputs per head
+    dt: (B, S, H)      softplus'd timestep (positive)
+    a : (H,)           negative decay rate per head (A = -exp(a_log))
+    b : (B, S, N)      input projection (ngroups=1, broadcast over heads)
+    c : (B, S, N)      output projection
+    d_skip: (H,) or None  skip connection
+    returns y: (B, S, H, P) in x's dtype
+    """
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    xf, dtf = x.float(), dt.float()
+    bf, cf = b.float(), c.float()
+    decay = torch.exp(dtf * a.float()[None, None, :])          # (B, S, H)
+    state = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        dbx = bf[:, t, None, :, None] * (xf[:, t] * dtf[:, t, :, None])[:, :, None, :]
+        state = state * decay[:, t, :, None, None] + dbx
+        ys.append((cf[:, t, None, :, None] * state).sum(2))     # (B, H, P)
+    y = torch.stack(ys, 1)
+    if d_skip is not None:
+        y = y + xf * d_skip.float()[None, None, :, None]
+    return y.to(x.dtype)

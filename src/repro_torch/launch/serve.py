@@ -4,6 +4,12 @@ Port of ``repro.launch.serve``, on the card by default:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --reduced --device cpu
+
+The default arch is qwen2.5-3b (dense, K5 and K6 on the card);
+mamba2-2.7b serves the ssm family, whose prefill runs K7 once per layer.
 
 The flags are the JAX launcher's, without ``--mesh`` (serving across cards
 is ROADMAP queue 1) and with ``--device``.  ``--reduced`` is a real switch

@@ -1,4 +1,4 @@
-"""Model zoo, for inference: the dense family so far.
+"""Model zoo, for inference: the dense and ssm families so far.
 
 Port of ``repro.models`` (see ``api`` for what is ported).
 """

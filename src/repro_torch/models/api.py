@@ -8,9 +8,9 @@ Port of ``repro.models.api``:
     init_cache(cfg, batch, max_seq, device)  -> zeroed cache dict
 
 ``init_params`` takes an integer seed where the JAX function takes a key.
-The dense family is ported; ``moe`` and ``mla`` raise in
-``transformer.Transformer``, ``rglru`` and ``ssm`` here, until their slices
-(ROADMAP queue 1).  ``loss_fn`` waits for the training slice.  Entry
+The dense and ssm families are ported; ``moe`` and ``mla`` raise in
+``transformer.Transformer``, ``rglru`` here, until their slices (ROADMAP
+queue 1).  ``loss_fn`` waits for the training slice.  Entry
 points run on the card unless the caller passes ``device="cpu"``; without
 a card and without that request they raise.
 """
@@ -18,10 +18,11 @@ from __future__ import annotations
 
 import torch
 
-from . import transformer
+from . import ssm, transformer
 from .config import ArchConfig
 
-_FAMS = {"dense": transformer, "moe": transformer, "mla": transformer}
+_FAMS = {"dense": transformer, "moe": transformer, "mla": transformer,
+         "ssm": ssm}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -39,7 +40,7 @@ def _mod(cfg: ArchConfig):
     if cfg.family not in _FAMS:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP queue 1: ssm with K7 next, then rglru)")
+            "(ROADMAP queue 1: rglru, with a windowed K6)")
     return _FAMS[cfg.family]
 
 

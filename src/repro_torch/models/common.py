@@ -1,9 +1,11 @@
 """Shared model machinery for inference: norms, rotary embeddings, attention
 and parameter init.
 
-Port of ``repro.models.common`` (the inference part).  Where the JAX
-module keeps XLA formulations and notes that the Pallas kernels are
-drop-in replacements for the hot paths, the port makes that swap:
+Port of ``repro.models.common`` (the inference part), plus
+:func:`logits_f32`, the f32 unembedding that every family's prefill and
+decode end in.  Where the JAX module keeps XLA formulations and notes
+that the Pallas kernels are drop-in replacements for the hot paths, the
+port makes that swap:
 :func:`blockwise_attention` goes to ``kernels.ops.attention`` (K5) and
 :func:`decode_attention` to ``kernels.ops.decode_attention`` (K6); on CPU
 tensors those run the kernels' plain versions.  The flash VJP and
@@ -24,6 +26,18 @@ def rms_norm(x, scale, eps: float = 1e-6):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def logits_f32(model, x):
+    """x: (B, D).  f32 logits of the products of x and the model's
+    unembedding (its ``unembed``, or ``embed`` when tied), summed in f32
+    and never rounded to the weights' dtype."""
+    unembed = model.unembed if model.unembed is not None else model.embed
+    if x.is_cuda and x.dtype != torch.float32:
+        # cuBLAS writes the f32 sums of the bf16 products directly, with
+        # no f32 copy of the (V, D) unembedding; the CPU has no such call
+        return torch.mm(x, unembed.t(), out_dtype=torch.float32)
+    return torch.nn.functional.linear(x.float(), unembed.float())
 
 
 # ---------------------------------------------------------------------------

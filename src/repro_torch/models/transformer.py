@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .common import (blockwise_attention, decode_attention, dense_init,
-                     rms_norm, rope_tables, rotate_halves)
+                     logits_f32, rms_norm, rope_tables, rotate_halves)
 from .config import ArchConfig
 
 
@@ -83,7 +83,7 @@ class Transformer(nn.Module):
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is not ported yet "
-                "(ROADMAP queue 1: MoE and MLA after the SSM slice)")
+                "(ROADMAP queue 1: MoE and MLA)")
         dtype = getattr(torch, cfg.param_dtype)
         vp, d = cfg.vocab_padded, cfg.d_model
         self.embed = _param((vp, d), dtype, device)
@@ -211,17 +211,6 @@ def _positions(cfg: ArchConfig, batch, b, s, device):
     return pos
 
 
-def _logits(model: Transformer, x):
-    """x: (B, D).  f32 logits of the products of x and the unembedding,
-    summed in f32 and never rounded to the weights' dtype."""
-    unembed = model.unembed if model.unembed is not None else model.embed
-    if x.is_cuda and x.dtype != torch.float32:
-        # cuBLAS writes the f32 sums of the bf16 products directly, with
-        # no f32 copy of the (V, D) unembedding; the CPU has no such call
-        return torch.mm(x, unembed.t(), out_dtype=torch.float32)
-    return F.linear(x.float(), unembed.float())
-
-
 @torch.no_grad()
 def forward(model: Transformer, cfg: ArchConfig, batch):
     """Returns (hidden (B, S, D), [(k, v) per layer, each (B, Hkv, S, dh)])."""
@@ -251,7 +240,7 @@ def prefill(model: Transformer, cfg: ArchConfig, batch, max_seq: int):
     ``max_seq``).  Returns (last-token logits (B, V) f32, cache)."""
     hidden, kvs = forward(model, cfg, batch)
     b, s, _ = hidden.shape
-    logits = _logits(model, hidden[:, -1, :])
+    logits = logits_f32(model, hidden[:, -1, :])
     if cfg.encoder_only:
         return logits, None
     if s > max_seq:
@@ -283,5 +272,5 @@ def decode_step(model: Transformer, cfg: ArchConfig, cache, tokens,
     for i, lp in enumerate(model.layers):
         x = _layer_decode(lp, x, rope, cfg, cache["k"][i],
                           cache["v"][i], kv_len)
-    logits = _logits(model, rms_norm(x, model.ln_f, cfg.norm_eps))
+    logits = logits_f32(model, rms_norm(x, model.ln_f, cfg.norm_eps))
     return logits, {"k": cache["k"], "v": cache["v"], "len": kv_len + 1}

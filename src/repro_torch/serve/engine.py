@@ -10,8 +10,9 @@ finished requests free their slot immediately (no head-of-line blocking).
 Tokens are chosen by greedy argmax.
 
 The cache lives on the engine's device and is written **in place**: a
-prefill copies its padded cache into the slot, and each decode step writes
-one position per slot.  The engine runs on the card unless it is given
+prefill copies every entry of its cache into the slot (the dense family's
+``k``/``v``, the ssm family's ``state``/``conv``, and ``len``), and each
+decode step updates each slot's part.  The engine runs on the card unless it is given
 ``device="cpu"``; without a card and without that request it raises.  The
 host-clock seconds of each prefill and each decode step (each ends in a
 read of the chosen tokens, which waits for the card) are kept in
@@ -87,14 +88,19 @@ class Engine:
                 batch["positions"] = torch.stack([pos, pos * 0, pos * 0], 0)
             logits, cache1 = api.prefill(self.params, self.cfg, batch,
                                          self.max_seq)
-            self.cache["k"][:, slot] = cache1["k"][:, 0]
-            self.cache["v"][:, slot] = cache1["v"][:, 0]
-            self.cache["len"][slot] = len(toks)
+            self._write_slot(slot, cache1)
             # the last position's logits give the first new token; reading
             # it waits for the card, slot write included
             req.generated.append(int(torch.argmax(logits[0])))
             self.prefill_s.append(time.perf_counter() - t0)
             self.active[slot] = req
+
+    def _write_slot(self, slot: int, cache1) -> None:
+        """Copy every entry of a batch-1 prefill cache into ``slot``:
+        along axis 0 for ``len``, axis 1 (after the layers) otherwise."""
+        for key, dst in self.cache.items():
+            ax = 0 if key == "len" else 1
+            dst.select(ax, slot).copy_(cache1[key].select(ax, 0))
 
     # --------------------------------------------------------------- tick
     def tick(self) -> int:

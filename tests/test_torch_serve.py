@@ -2,8 +2,8 @@
 
 Both engines get the same float32 weights (carried across by
 ``repro_torch.models.convert``) and the same prompts, as in
-``tests/test_serve.py`` (reduced qwen2.5-3b, ``slots=2``); greedy tokens
-must be identical.  Also: slots are reused, an idle slot that ticks past
+``tests/test_serve.py`` (reduced qwen2.5-3b and mamba2-2.7b, ``slots=2``);
+greedy tokens must be identical.  Also: slots are reused, an idle slot that ticks past
 ``max_seq`` gives the same tokens as JAX with no error, and the entry
 points need a card unless the CPU is asked for.
 """
@@ -25,10 +25,10 @@ from repro_torch.models import api, convert
 from repro_torch.serve import Engine, Request
 
 
-def _setup(seed):
-    jcfg = dataclasses.replace(jconfigs.get_reduced("qwen2.5-3b"),
+def _setup(seed, arch="qwen2.5-3b"):
+    jcfg = dataclasses.replace(jconfigs.get_reduced(arch),
                                param_dtype="float32")
-    cfg = dataclasses.replace(configs.get_reduced("qwen2.5-3b"),
+    cfg = dataclasses.replace(configs.get_reduced(arch),
                               param_dtype="float32")
     jparams = japi.init_params(jcfg, jax.random.key(seed))
     model = convert.from_jax(cfg, jax.tree.map(np.asarray, jparams),
@@ -36,8 +36,9 @@ def _setup(seed):
     return jcfg, jparams, cfg, model
 
 
-def _serve_both(prompts, max_new, *, slots, max_seq, seed=3):
-    jcfg, jparams, cfg, model = _setup(seed)
+def _serve_both(prompts, max_new, *, slots, max_seq, seed=3,
+                arch="qwen2.5-3b"):
+    jcfg, jparams, cfg, model = _setup(seed, arch)
     jeng = JEngine(jcfg, jparams, slots=slots, max_seq=max_seq)
     eng = Engine(cfg, model, slots=slots, max_seq=max_seq, device="cpu")
     for i, p in enumerate(prompts):
@@ -63,6 +64,30 @@ def test_slots_reused():
     got, want, eng = _serve_both(prompts, 2, slots=1, max_seq=32, seed=0)
     assert len(got) == 3 and got == want
     assert list(eng.free) == [0]
+
+
+def test_mamba2_engine_tokens_match_jax_engine():
+    """The ssm family: every cache entry (state, conv, len) goes into the
+    slot, and the tokens are the JAX engine's."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 128, int(rng.integers(4, 12))).astype(np.int32)
+               for _ in range(3)]
+    got, want, eng = _serve_both(prompts, 4, slots=2, max_seq=64,
+                                 arch="mamba2-2.7b")
+    assert len(got) == 3 and got == want
+    assert set(eng.cache) == {"state", "conv", "len"}
+
+
+def test_mamba2_slots_reused():
+    prompts = [np.array([1, 2, 3, 4], np.int32), np.array([5, 6, 7], np.int32),
+               np.array([9, 9, 9, 9, 9], np.int32)]
+    got, want, eng = _serve_both(prompts, 3, slots=1, max_seq=32, seed=0,
+                                 arch="mamba2-2.7b")
+    assert len(got) == 3 and got == want
+    assert list(eng.free) == [0]
+    # the last prompt's 5 tokens and 2 decode steps (its first new token
+    # came from the prefill)
+    assert eng.cache["len"].tolist() == [5 + 2]
 
 
 def test_idle_slot_ticking_past_max_seq_matches_jax():
@@ -107,6 +132,13 @@ def test_engine_and_launcher_need_a_card_unless_asked(monkeypatch, capsys):
                               "3", "--max-new", "3"]) == 0
     out = capsys.readouterr().out
     assert "served 3 requests, 9 tokens" in out and "on CPU" in out
+
+
+def test_launcher_serves_mamba2_on_the_cpu(capsys):
+    assert launch_serve.main(["--arch", "mamba2-2.7b", "--reduced",
+                              "--device", "cpu", "--requests", "3",
+                              "--max-new", "3"]) == 0
+    assert "served 3 requests, 9 tokens" in capsys.readouterr().out
 
 
 def test_reduced_is_a_switch_off_by_default(monkeypatch):
