@@ -9,12 +9,19 @@ result line:
 1. Device: the card's name and power limit (``nvidia-smi``) and SM count.
 2. Build: every kernel variant of phase 3, one ``nvcc`` per source, all at
    once; prints the build seconds.
-3. Kernels against their plain versions on the card, within
+3. ``_build.stream_ptr`` against ``torch.cuda.current_stream`` on two
+   streams.  Kernels against their plain versions on the card, within
    ``0.02 * max|plain|`` (the JAX tests' tolerance): K1 (the rendered
    blocked module, split-K and not), K2 (the rendered single-block module),
-   K3 (``kernels.scaled_gemm.scaled_gemm``), K4 (``naive_scaled_gemm``),
+   K3 (``kernels.scaled_gemm.scaled_gemm``), K4 (``naive_scaled_gemm``);
+   K2 and K4 at 128x128x256, 256^3, 128x384x256 (M != N) and 256^3 with
+   int8 storage, and K4 refused at 1024x1536x7168 (before any launch);
    K5 (``kernels.flash_attention.flash_attention``, bf16, (1, 16, 2, S, 128)
-   for S in 128, 1000, 2048: causal, causal with window 256, unmasked) and
+   for S in 128, 1000, 2048: causal, causal with window 256, unmasked; and
+   at the edges of its 128-query and 64-key tiles: causal S = 1, 127, 129,
+   1918 (also as the model's transposed (B, S, H, D) views) and 4096, S =
+   2048 with window 2048 (the RG-LRU prefill's), GQA 1 (Hq = Hkv = 16,
+   S = 333)) and
    K6 (``decode_attention``, bf16, 8 rows of a (8, 4096, 2, 128) cache read
    through its strides: ragged kv_len with 4096 and one above 4096, and
    short ones from 1 as a case of their own) and K7 (``kernels.ssd.ssd``,
@@ -52,7 +59,8 @@ result line:
       engine token's logit may fall short of that run's largest by at
       most ``0.02 * max|logits|``.  Then two windows traced with
       torch.profiler (3 decode ticks of 8 slots, one prefill of the
-      longest prompt) give the device's busy share and its top kernels;
+      longest prompt) give the device's busy share and its top kernels,
+      and the prefill's K5 time (K7's in f);
    e. the model on the card against the model on the CPU: qwen2.5-3b at
       full width with 2 layers, one set of bf16 weights, one 333-token
       prompt; the prefill's last-token logits and those of 4 decode steps
@@ -72,9 +80,13 @@ result line:
    CUDA events, beside the least time the card could take and one library
    call computing the same function: the library seed (f32 dequant +
    ``torch.matmul``) for K1-K4, ``scaled_dot_product_attention`` for K5
-   (at the longest prompt of 4d) and K6 (at 4d's cache and final lengths,
-   one launch per layer in turn, as a decode tick reads the cache); K7
-   at the longest prompt of 4f, for which no library call exists.
+   (at the longest prompt of 4d, and in a line of its own at the
+   shortest) and K6 (at 4d's cache and final lengths, one launch per layer
+   in turn, as a decode tick reads the cache); K7 at the longest prompt of
+   4f, for which no library call exists.  K5, K6 and SDPA are timed over
+   100 calls.  K5 and SDPA also get their device time per call
+   from torch.profiler (``device_ms``): the event time of a short kernel
+   includes the host's launch overhead.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
@@ -173,7 +185,8 @@ def main() -> int:
         dict(storage=i8), dict(block_m=256),
     ]
     sources = [sg.kernel_source(**v) for v in variants]
-    sources.append("#define STORAGE_INT8 0\n" + _build.read_csrc("scaled_gemm.cu"))
+    sources += ["#define STORAGE_INT8 %d\n" % i + _build.read_csrc("scaled_gemm.cu")
+                for i in (0, 1)]
     sources.append(_build.read_csrc("flash_attention.cu"))
     sources.append(_build.read_csrc("ssd.cu"))
     t0 = time.perf_counter()
@@ -182,6 +195,17 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
 
     # ----------------------------------------- 3. kernels vs plain versions
+    # every launcher takes its stream from _build.stream_ptr, which reads a
+    # private torch call: hold it to the public stream, on two streams
+    for stream in (torch.cuda.current_stream(dev), torch.cuda.Stream(dev)):
+        with torch.cuda.stream(stream):
+            want = torch.cuda.current_stream(dev).cuda_stream
+            got = (_build.stream_ptr(dev), _build.stream_ptr(torch.device(
+                "cuda", torch.cuda.current_device())))
+            if got != (want, want):
+                fail(f"stream_ptr gave {got}, the current stream is {want}")
+    print("stream_ptr: the current stream's handle, on two streams")
+
     def rel_err(got, want):
         want = want.float()
         return ((got.float() - want).abs().max()
@@ -238,6 +262,12 @@ def main() -> int:
         ("K4", "single block", lambda *p: sg.naive_scaled_gemm(*p),
          sg.monolith_reference, (256, 256, 256), fp8),
     ]
+    for name, run in (("K2", module(SEED_MONOLITH)),
+                      ("K4", lambda *p: sg.naive_scaled_gemm(*p))):
+        cases += [(name, "single block, M != N", run, sg.monolith_reference,
+                   (128, 384, 256), fp8),
+                  (name, "single block, int8", run, sg.monolith_reference,
+                   (256, 256, 256), i8)]
     worst = {}
     for name, what, kernel, plain, (m, n, k), dtype in cases:
         p = problem(m, n, k, dtype)
@@ -269,8 +299,13 @@ def main() -> int:
         err = (got.float() - want).abs().amax(-1)
         return (err / want.abs().amax(-1).clamp_min(1e-30)).max().item()
 
-    def attn_inputs(b, hq, hkv, s, d, seed):
+    def attn_inputs(b, hq, hkv, s, d, seed, views=False):
+        """q, k, v; with ``views`` as the model hands them over: (B, S, H,
+        D) tensors transposed to (B, H, S, D)."""
         g = torch.Generator(device=dev).manual_seed(seed)
+        if views:
+            return [torch.randn(b, s, h, d, generator=g, device=dev).to(bf16)
+                    .transpose(1, 2) for h in (hq, hkv, hkv)]
         return [torch.randn(shape, generator=g, device=dev).to(bf16)
                 for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
 
@@ -295,6 +330,23 @@ def main() -> int:
                 lambda q, k, v, c=causal, w=window: fa.attention_reference(
                     q, k, v, causal=c, window=w),
                 attn_inputs(1, 16, 2, s_len, 128, s_len)))
+    # the edges of K5's tiles (128 queries, 64 keys), the phase-5 shape, the
+    # cache length, the RG-LRU prefill's window, and GQA 1
+    for what, hq, hkv, s_len, window, views in (
+            ("S=1 causal", 16, 2, 1, None, False),
+            ("S=127 causal", 16, 2, 127, None, False),
+            ("S=129 causal", 16, 2, 129, None, False),
+            ("S=1918 causal", 16, 2, 1918, None, False),
+            ("S=1918 causal, (B,S,H,D) views", 16, 2, 1918, None, True),
+            ("S=4096 causal", 16, 2, 4096, None, False),
+            ("S=2048 causal window=2048", 16, 2, 2048, 2048, False),
+            ("Hq=Hkv=16 S=333 causal", 16, 16, 333, None, False)):
+        attn_cases.append((
+            "K5", what,
+            lambda q, k, v, w=window: fa.flash_attention(q, k, v, window=w),
+            lambda q, k, v, w=window: fa.attention_reference(q, k, v,
+                                                             window=w),
+            attn_inputs(1, hq, hkv, s_len, 128, s_len + 1, views)))
     attn_cases.append((
         "K6", "B=8 Smax=4096 kv_len ragged", fa.decode_attention,
         fa.decode_attention_reference,
@@ -608,7 +660,7 @@ def main() -> int:
 
     # where the time goes: traced windows after the counted run (the
     # profiler slows the host, so these walls are not the times above)
-    def trace(what, fn):
+    def trace(what, fn, watch=None):
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]):
             torch.ones(1, device=dev).add_(1)   # the profiler's own start-up
@@ -628,12 +680,17 @@ def main() -> int:
             end = max(end, b)
             by_name[name[:48]] = by_name.get(name[:48], 0.0) + (b - a)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        mine = ""
+        if watch:   # one of the port's kernels, named whether in the top or not
+            hits = [b - a for a, b, name in spans if watch in name]
+            mine = (f"; {watch} {sum(hits) / 1e3:.2f} ms in {len(hits)} "
+                    f"launches ({100 * sum(hits) / busy:.1f}% of busy)")
         print(f"trace {what}: {len(spans)} kernels, device busy "
               f"{busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall under "
               f"the profiler ({100 * busy / wall_us:.1f}%); top: "
-              + "; ".join(f"{n} {t / 1e3:.2f} ms" for n, t in top))
+              + "; ".join(f"{n} {t / 1e3:.2f} ms" for n, t in top) + mine)
 
-    def trace_serving(model, cfg, label, engine, prompts):
+    def trace_serving(model, cfg, label, engine, prompts, watch):
         for i, prompt in enumerate(prompts[:SERVE["slots"]]):
             engine.submit(Request(rid=100 + i, prompt=prompt, max_new=8))
         engine.tick()                      # admits all slots
@@ -643,7 +700,7 @@ def main() -> int:
                                        device=dev).long()
         trace(f"{label}, prefill of {len(longest_toks)} tokens",
               lambda: api.prefill(model, cfg, {"tokens": longest_toks[None]},
-                                  SERVE["max_seq"]))
+                                  SERVE["max_seq"]), watch)
 
     # bf16 keeps 8 bits: the two paths round at other points (the kernels'
     # bf16 operands, the card's and the CPU's matmul sum orders), so a
@@ -701,12 +758,13 @@ def main() -> int:
     if path_launches["K6"] != qwen.n_layers * ticks:
         fail(f"K6 launched {path_launches['K6']} times, expected "
              f"{qwen.n_layers} x {ticks} ticks")
-    longest = max(map(len, prompts))
+    longest, shortest = max(map(len, prompts)), min(map(len, prompts))
     final_lens = engine.cache["len"].clamp(max=SERVE["max_seq"]).tolist()
     cache_k = engine.cache["k"].clone()      # (L, B, Smax, Hkv, dh)
     cache_v = engine.cache["v"].clone()
     witness(model, qwen, "qwen2.5-3b", finished, rows=1)
-    trace_serving(model, qwen, "qwen2.5-3b", engine, prompts)
+    trace_serving(model, qwen, "qwen2.5-3b", engine, prompts,
+                  "flash_prefill_kernel")
     del engine, model, finished
     torch.cuda.empty_cache()
 
@@ -724,7 +782,8 @@ def main() -> int:
     m_longest = max(map(len, m_prompts))
     witness(model, mamba, "mamba2-2.7b", finished, rows=SERVE["slots"])
     ssm_drift(model, mamba, "mamba2-2.7b", finished, rows=SERVE["slots"])
-    trace_serving(model, mamba, "mamba2-2.7b", engine, m_prompts)
+    trace_serving(model, mamba, "mamba2-2.7b", engine, m_prompts,
+                  "ssd_scan_kernel")
     del engine, model, finished
     torch.cuda.empty_cache()
 
@@ -786,14 +845,31 @@ def main() -> int:
     # one launch per layer in turn, as a decode tick reads the cache, so
     # each launch finds its 33 MB cold in the 50 MB L2 as on the path.
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    q, k, v = attn_inputs(1, 16, 2, longest, 128, 3)
-    pairs = longest * (longest + 1) // 2          # causal (q, k) pairs
-    k5 = dict(sets=[(q, k, v)], kernel=fa.flash_attention,
-              plain=fa.attention_reference,
-              library=lambda q, k, v: sdpa(q, k, v, is_causal=True,
-                                           enable_gqa=True),
-              ops=4 * 16 * 128 * pairs, nbytes=(2 * 16 + 2 * 2) * longest * 128 * 2,
-              shape=f"B,Hq,Hkv,S,D=1,16,2,{longest},128 causal")
+
+    def k5_at(s_len):
+        q, k, v = attn_inputs(1, 16, 2, s_len, 128, 3)
+        pairs = s_len * (s_len + 1) // 2          # causal (q, k) pairs
+        return dict(sets=[(q, k, v)], kernel=fa.flash_attention,
+                    plain=fa.attention_reference,
+                    library=lambda q, k, v: sdpa(q, k, v, is_causal=True,
+                                                 enable_gqa=True),
+                    ops=4 * 16 * 128 * pairs,
+                    nbytes=(2 * 16 + 2 * 2) * s_len * 128 * 2,
+                    shape=f"B,Hq,Hkv,S,D=1,16,2,{s_len},128 causal")
+
+    def device_ms(fn, args, reps=20):
+        """Device time per call, from the kernels torch.profiler saw."""
+        from torch.profiler import ProfilerActivity, profile
+        fn(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize()
+        return sum(e.time_range.end - e.time_range.start for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   ) / reps / 1e3
+    k5 = k5_at(longest)
     g = torch.Generator(device=dev).manual_seed(4)
     q6 = torch.randn(SERVE["slots"], 16, 128, generator=g, device=dev).to(bf16)
     lens6 = torch.tensor(final_lens, dtype=torch.int32, device=dev)
@@ -813,16 +889,17 @@ def main() -> int:
     def time_sets(fn, sets, reps):
         return time_ms(lambda: [fn(*a) for a in sets], (), reps) / len(sets)
 
-    for name, t in (("K5", k5), ("K6", k6)):
+    def attn_record(name, t):
         got = t["kernel"](*t["sets"][0])
         want = t["plain"](*t["sets"][0])
         lib_err = row_err(t["library"](*t["sets"][0]), want)
-        ms = time_sets(t["kernel"], t["sets"], 20)
+        # 100 calls: a call that the host's launch overhead bounds is noisy
+        ms = time_sets(t["kernel"], t["sets"], 100)
         plain_ms = time_sets(t["plain"], t["sets"], 3)
-        library_ms = time_sets(t["library"], t["sets"], 20)
+        library_ms = time_sets(t["library"], t["sets"], 100)
         t_bytes = t["nbytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = t["ops"] / PEAK_OPS["bfloat16"] * 1e3
-        records.append({
+        rec = {
             "name": name, "route": "cuda", "source": FA_CSRC,
             "replaces": REPLACES[name], "launches": path_launches[name],
             "max_abs_err": (got.float() - want.float()).abs().max().item(),
@@ -830,10 +907,28 @@ def main() -> int:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms, "shape": t["shape"],
             "row_rel_err": row_err(got, want),
-            "library_row_rel_err": lib_err})
-        print(f"{name} at {t['shape']}: {ms:.4f} ms (plain {plain_ms:.4f}, "
-              f"sdpa {library_ms:.4f}, bound {max(t_bytes, t_ops):.4f} by "
-              f"{records[-1]['bound_by']})")
+            "library_row_rel_err": lib_err}
+        line = (f"{name} at {t['shape']}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+                f"sdpa {library_ms:.4f}, bound {max(t_bytes, t_ops):.4f} by "
+                f"{rec['bound_by']}")
+        if name == "K5":
+            rec["device_ms"] = device_ms(t["kernel"], t["sets"][0])
+            rec["library_device_ms"] = device_ms(t["library"], t["sets"][0])
+            line += (f"; device per call {rec['device_ms']:.4f}, sdpa "
+                     f"{rec['library_device_ms']:.4f}")
+        print(line + ")")
+        return rec
+
+    records.append(attn_record("K5", k5))
+    # K5 at the shortest prompt of 4d, in a line of its own and kept in
+    # K5's record: a few blocks, where launch latency and the host count
+    short = attn_record("K5", k5_at(shortest))
+    records[-1]["at_shortest_prompt"] = {
+        key: short[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "device_ms",
+                                    "library_device_ms", "max_abs_err",
+                                    "row_rel_err")}
+    records.append(attn_record("K6", k6))
 
     # K7 at the longest prompt of 4f, x, B and C read as views of one
     # (1, S, H*P + 2N) tensor, as the model hands them over.  No PyTorch

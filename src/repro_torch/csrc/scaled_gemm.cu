@@ -34,7 +34,28 @@
 // (mn: M outermost, as the TPU grid) or M (nm).  A tile that needs more
 // shared memory than a block may have is refused at launch, which the
 // platform reports as a compile error.  Kept simple on purpose: no wgmma,
-// TMA or pipelining yet, and the monolith is one block by definition.
+// TMA or pipelining yet.
+//
+// monolith_kernel.  The TPU kernel is one grid step that holds all of A,
+// B and their scales in VMEM, dequantizes both to f32 and takes one f32
+// dot over the whole K; where the problem does not fit VMEM the compiler
+// refuses it.  Its Hopper form keeps that function and that refusal but
+// not the single block: sg_monolith computes the footprint one block would
+// need to hold the problem, 4*(M*K/128 + K/128*ceil(N/128)) + M*K + K*N
+// bytes, and returns cudaErrorInvalidValue before any launch where it
+// exceeds the card's opt-in shared memory per block (the stand-in for the
+// VMEM limit, which the platform reports as a compile error).  What fits
+// is at most ~227 KB of operands, a few tens of MFLOP: 256^3 is 33.6
+// MFLOP on 0.26 MB in and out, bound by the f32 FMA rate (67 TFLOP/s:
+// 0.0005 ms), so a launch's few microseconds are the floor.  So the
+// output is spread over the card in MONO_TILE x MONO_TILE tiles, one block
+// each (64 blocks at 256^3); per 128-deep K slab a block dequantizes its
+// rows of A and its columns of B into shared memory once (to_f32(x) *
+// scale in f32, rounded as the one block rounded it), and each of its
+// threads sums a 4 x 4 micro-tile with f32 FMAs in K order.  Each A
+// element is dequantized once per tile column and each B element once per
+// tile row, not once per output.  Not done: no double buffering (there
+// are at most a few slabs).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -68,6 +89,9 @@
 
 #define SCALE_BLOCK 128
 #define THREADS 256
+#define MONO_TILE 32     // monolith: output rows and columns per block
+#define MONO_SLAB 128    // K staged per step
+#define MONO_THREADS (MONO_TILE * MONO_TILE / 16)  // 4 x 4 outputs each
 #define N_SUB (BLOCK_K / SCALE_BLOCK)
 #define NB_BLK (BLOCK_N / SCALE_BLOCK)
 
@@ -276,33 +300,60 @@ blocked_kernel(const uint8_t* __restrict__ A, const uint8_t* __restrict__ B,
 #endif
 }
 
-// One block holds the whole problem in shared memory and writes C straight
-// to device memory: the single-program "naive translation".
-__global__ void __launch_bounds__(1024)
+// The single-block seed's function over the whole card (see the header).
+__global__ void __launch_bounds__(MONO_THREADS)
 monolith_kernel(const uint8_t* __restrict__ A, const uint8_t* __restrict__ B,
                 const float* __restrict__ As, const float* __restrict__ Bs,
                 __nv_bfloat16* __restrict__ C, int M, int N, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float sA[MONO_TILE][MONO_SLAB + 1];  // dequantized A rows
+  __shared__ __align__(16) float sB[MONO_SLAB][MONO_TILE];  // and B rows
   const int kb = K / SCALE_BLOCK, nb = (N + SCALE_BLOCK - 1) / SCALE_BLOCK;
-  float* sAs = (float*)smem;
-  float* sBs = sAs + M * kb;
-  uint8_t* sA = (uint8_t*)(sBs + kb * nb);
-  uint8_t* sB = sA + (size_t)M * K;
-  for (int i = threadIdx.x; i < M * kb; i += blockDim.x) sAs[i] = As[i];
-  for (int i = threadIdx.x; i < kb * nb; i += blockDim.x) sBs[i] = Bs[i];
-  for (size_t i = threadIdx.x; i < (size_t)M * K; i += blockDim.x) sA[i] = A[i];
-  for (size_t i = threadIdx.x; i < (size_t)K * N; i += blockDim.x) sB[i] = B[i];
-  __syncthreads();
-  for (size_t e = threadIdx.x; e < (size_t)M * N; e += blockDim.x) {
-    const int r = e / N, c = e % N;
-    float acc = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float a = to_f32(sA[(size_t)r * K + k]) * sAs[r * kb + k / SCALE_BLOCK];
-      const float b = to_f32(sB[(size_t)k * N + c])
-                      * sBs[(k / SCALE_BLOCK) * nb + c / SCALE_BLOCK];
-      acc += a * b;
+  const int m0 = blockIdx.y * MONO_TILE, n0 = blockIdx.x * MONO_TILE;
+  const int tx = threadIdx.x % (MONO_TILE / 4);  // columns tx*4 .. tx*4+3
+  const int ty = threadIdx.x / (MONO_TILE / 4);  // rows ty*4 .. ty*4+3
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += MONO_SLAB) {
+    const int kblk = k0 / SCALE_BLOCK;
+    for (int i = threadIdx.x; i < MONO_TILE * MONO_SLAB; i += MONO_THREADS) {
+      const int r = i / MONO_SLAB, kk = i % MONO_SLAB, m = m0 + r;
+      sA[r][kk] = m < M ? to_f32(A[(size_t)m * K + k0 + kk])
+                              * As[(size_t)m * kb + kblk]
+                        : 0.f;
     }
-    C[e] = __float2bfloat16(acc);
+    // the tile's columns lie in one 128-column scale block
+    const float bs = n0 < N ? Bs[(size_t)kblk * nb + n0 / SCALE_BLOCK] : 0.f;
+    for (int i = threadIdx.x; i < MONO_SLAB * MONO_TILE; i += MONO_THREADS) {
+      const int kk = i / MONO_TILE, c = i % MONO_TILE, n = n0 + c;
+      sB[kk][c] = n < N ? to_f32(B[(size_t)(k0 + kk) * N + n]) * bs : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < MONO_SLAB; ++kk) {
+      const float4 b = *reinterpret_cast<const float4*>(&sB[kk][tx * 4]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = sA[ty * 4 + i][kk];
+        acc[i][0] = fmaf(a, b.x, acc[i][0]);
+        acc[i][1] = fmaf(a, b.y, acc[i][1]);
+        acc[i][2] = fmaf(a, b.z, acc[i][2]);
+        acc[i][3] = fmaf(a, b.w, acc[i][3]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (m < M && n < N) C[(size_t)m * N + n] = __float2bfloat16(acc[i][j]);
+    }
   }
 }
 
@@ -337,6 +388,9 @@ extern "C" int sg_blocked(const void* A, const void* B, const void* As,
   return (int)cudaGetLastError();
 }
 
+// The footprint is that of the whole problem held by one block, as the
+// TPU kernel holds it in VMEM: refused, before any launch, where it exceeds
+// one block's opt-in shared memory.
 extern "C" int sg_monolith(const void* A, const void* B, const void* As,
                            const void* Bs, void* C, int M, int N, int K,
                            void* stream) {
@@ -344,9 +398,17 @@ extern "C" int sg_monolith(const void* A, const void* B, const void* As,
   const size_t kb = K / SCALE_BLOCK, nb = (N + SCALE_BLOCK - 1) / SCALE_BLOCK;
   const size_t bytes = 4 * ((size_t)M * kb + kb * nb) + (size_t)M * K
                        + (size_t)K * N;
-  const int err = set_smem((const void*)monolith_kernel, bytes);
-  if (err) return err;
-  monolith_kernel<<<1, 1024, bytes, (cudaStream_t)stream>>>(
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
+  const int gx = (N + MONO_TILE - 1) / MONO_TILE;
+  const int gy = (M + MONO_TILE - 1) / MONO_TILE;
+  const dim3 grid(gx > 0 ? gx : 1, gy > 0 ? gy : 1);
+  monolith_kernel<<<grid, MONO_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)A, (const uint8_t*)B, (const float*)As,
       (const float*)Bs, (__nv_bfloat16*)C, M, N, K);
   return (int)cudaGetLastError();

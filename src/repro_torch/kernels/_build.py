@@ -139,7 +139,13 @@ def bind(lib: ctypes.CDLL, name: str, n_ptr: int, n_int: int,
 
 
 def stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of ``device``'s current stream, which every launcher
+    takes.  Read without building a ``torch.cuda.Stream`` object, which
+    costs a few microseconds of host time on every launch."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

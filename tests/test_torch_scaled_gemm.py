@@ -199,6 +199,14 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         _build.nvcc_path()
 
 
+def test_stream_ptr_is_the_current_raw_stream_of_the_device(monkeypatch):
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 1000 + index, raising=False)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    assert _build.stream_ptr(torch.device("cuda", 1)) == 1001
+    assert _build.stream_ptr(torch.device("cuda")) == 1003
+
+
 def test_launch_codes_map_to_refused_or_fault():
     class Lib:
         @staticmethod
