@@ -13,7 +13,17 @@ result line:
    streams.  Kernels against their plain versions on the card, within
    ``0.02 * max|plain|`` (the JAX tests' tolerance): K1 (the rendered
    blocked module, split-K and not), K2 (the rendered single-block module),
-   K3 (``kernels.scaled_gemm.scaled_gemm``), K4 (``naive_scaled_gemm``);
+   K3 (``kernels.scaled_gemm.scaled_gemm``), K4 (``naive_scaled_gemm``).
+   Every K1/K3 case prints which blocked kernel its library holds (the
+   library's ``sg_blocked_path``) and the dynamic shared memory its launch
+   asks for (``sg_blocked_smem``) beside ``KernelGenome.smem_bytes()``,
+   and fails if either differs from what the genome says.  On the wgmma
+   path: the MXU seed at 1024x1536x7168, 1024x576x7168 (N not padded: the
+   kernel masks the last tile) and 6144x7168x2048, every wgmma tile
+   (64x128, 256x128, 64x256, 128x256), block_k 256 and 512, k_split 2, 4
+   and 8 at 1024x512x7168, grid_order nm, int8 storage; on the mma.sync
+   path the naive seed (f32 dequant_inputs), dequant_inputs in bf16 and
+   192x128;
    K2 and K4 at 128x128x256, 256^3, 128x384x256 (M != N) and 256^3 with
    int8 storage, and K4 refused at 1024x1536x7168 (before any launch);
    K5 (``kernels.flash_attention.flash_attention``, bf16, (1, 16, 2, S, 128)
@@ -41,7 +51,9 @@ result line:
    read just after:
    a. the campaign: ``repro_torch.launch.scientist.run_campaign`` for 2
       generations with the ScriptedLLM, one worker, timed on the 18
-      challenge shapes at full size (K1);
+      challenge shapes at full size (K1); each blocked genome's path and
+      its µs per shape, and the library each of its 18 shapes loaded
+      (``sg_blocked_path``), which must be the one its rule gives;
    b. the platform's compile-error path: the single-block seed passes the
       256^3 correctness check and is refused at the first challenge shape
       (K2), the Hopper form of the TPU's VMEM refusal;
@@ -79,7 +91,14 @@ result line:
 5. Times: each kernel and its plain version at one main-path shape, with
    CUDA events, beside the least time the card could take and one library
    call computing the same function: the library seed (f32 dequant +
-   ``torch.matmul``) for K1-K4, ``scaled_dot_product_attention`` for K5
+   ``torch.matmul``) for K1-K4 (K1 and K3 also with their device time from
+   torch.profiler, and K1's shapes with ``torch._scaled_mm`` given 1x128
+   and 128x128 block scales, timed where the installation takes them and
+   its refusal printed where it does not; a K1/K3 row's bound is at the
+   peak of the tensor cores that multiply its inputs exactly: fp8 or int8
+   for scale_acc, bf16 for dequant_inputs in bf16, f32 for the f32 compute
+   type; K1b must be faster than the library seed),
+   ``scaled_dot_product_attention`` for K5
    (at the longest prompt of 4d, and in a line of its own at the
    shortest) and K6 (at 4d's cache and final lengths, one launch per layer
    in turn, as a decode tick reads the cache); K7 at the longest prompt of
@@ -92,6 +111,7 @@ The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
 """
 import copy
+import ctypes
 import dataclasses
 import json
 import pathlib
@@ -102,7 +122,9 @@ import time
 
 TOL = 0.02                  # x max|plain|, as tests/test_kernels_scaled_gemm.py
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, same source
+# dense tensor-core (and f32 FMA) peaks, same source
+PEAK_OPS = {"float8_e4m3fn": 1979e12, "int8": 1979e12, "bfloat16": 989e12,
+            "float32": 67e12}
 CSRC = "src/repro_torch/csrc/scaled_gemm.cu"
 FA_CSRC = "src/repro_torch/csrc/flash_attention.cu"
 SSD_CSRC = "src/repro_torch/csrc/ssd.cu"
@@ -178,17 +200,103 @@ def main() -> int:
     def module(genome):
         return codegen.load_kernel(codegen.render_source(genome))[0]
 
-    # ----------------------------------------------------------- 2. build
-    variants = [
-        dict(), dict(compute_dtype=f32, scale_application="dequant_inputs"),
-        dict(scale_application="dequant_inputs"), dict(grid_order="nm"),
-        dict(storage=i8), dict(block_m=256),
+    def rel_err(got, want):
+        want = want.float()
+        return ((got.float() - want).abs().max()
+                / (want.abs().max().clamp_min(1e-30))).item()
+
+    # A K1/K3 case knows its genome and the #defines (and kernel text) its
+    # call builds at a shape: load_library gives back the very library the
+    # call launched, which phase 3 asks for its path and shared memory.
+    @dataclasses.dataclass
+    class Blocked:
+        genome: object
+        defines: object        # (m, n, k, storage) -> #defines
+        cuda: object = None    # a rendered module's copy of the text
+
+        def library(self, m, n, k, dtype):
+            return sg.load_library(self.defines(m, n, k, dtype), self.cuda)
+
+    def k3(**kw):
+        def kernel(*p):
+            return sg.scaled_gemm(*p, **kw)
+
+        def plain(*p):
+            return sg.blocked_reference(
+                *p, block_k=kw.get("block_k", 128),
+                scale_application=kw.get("scale_application", "scale_acc"),
+                compute_dtype=kw.get("compute_dtype", bf16))
+        genome = SEED_MXU.replace(
+            **{f: kw[f] for f in ("block_m", "block_n", "block_k",
+                                  "scale_application", "grid_order")
+               if f in kw},
+            compute_dtype=str(kw.get("compute_dtype", bf16))[6:])
+        return kernel, plain, Blocked(
+            genome, lambda m, n, k, dt: sg.blocked_defines(**kw, storage=dt))
+
+    def k1(genome, ks):
+        run = module(genome)
+
+        def plain(a, b, a_s, b_s):
+            return sg.blocked_reference(
+                a, b, a_s, b_s, block_k=genome.block_k, k_split=ks,
+                scale_application=genome.scale_application,
+                compute_dtype=getattr(torch, genome.compute_dtype))
+        return run, plain, Blocked(genome, run.__globals__["kernel_defines"],
+                                   run.__globals__["CUDA_SOURCE"])
+
+    mxu = SEED_MXU
+    mxu_split4 = mxu.replace(k_split=4)
+    n576, n512 = (1024, 576, 7168), (1024, 512, 7168)
+    full = (6144, 7168, 2048)
+    cases = [
+        # the wgmma path: the MXU seed's family
+        ("K1b", "MXU seed", *k1(mxu, 1), (1024, 1536, 7168), fp8),
+        ("K1b", "MXU seed, N 576 (not padded)", *k1(mxu, 1), n576, fp8),
+        ("K1b", "MXU seed, full size", *k1(mxu, 1), full, fp8),
+        ("K1b", "64x128", *k1(mxu.replace(block_m=64), 1), n576, fp8),
+        ("K1b", "256x128", *k1(mxu.replace(block_m=256), 1), n576, fp8),
+        ("K1b", "64x256", *k1(mxu.replace(block_m=64, block_n=256), 1),
+         n576, fp8),
+        ("K1b", "128x256", *k1(mxu.replace(block_n=256), 1), n576, fp8),
+        ("K1b", "block_k 256", *k1(mxu.replace(block_k=256), 1),
+         (1024, 1536, 7168), fp8),
+        ("K1b", "block_k 512", *k1(mxu.replace(block_k=512), 1), n576, fp8),
+        ("K1b", "grid_order nm", *k1(mxu.replace(grid_order="nm"), 1), n576,
+         fp8),
+        ("K1b", "int8 storage", *k1(mxu, 1), (1024, 1536, 7168), i8),
+        ("K1a", "k_split 2", *k1(mxu.replace(k_split=2), 2), n512, fp8),
+        ("K1a", "k_split 4", *k1(mxu_split4, 4), n512, fp8),
+        ("K1a", "k_split 8", *k1(mxu.replace(k_split=8), 8), n512, fp8),
+        ("K1a", "k_split 4", *k1(mxu_split4, 4), (1024, 1536, 7168), fp8),
+        # the mma.sync path
+        ("K1b", "naive seed (f32, dequant_inputs)", *k1(SEED_NAIVE, 1),
+         (1024, 1536, 7168), fp8),
+        ("K1b", "dequant_inputs bf16",
+         *k1(mxu.replace(scale_application="dequant_inputs"), 1),
+         (6144, 4096, 512), fp8),
+        ("K1b", "192x128 (three sub-tiles)", *k1(mxu.replace(block_m=192), 1),
+         (1152, 640, 2048), fp8),
+        ("K3", "128^3 scale_acc", *k3(), (256, 384, 512), fp8),
+        ("K3", "128^3 scale_acc int8", *k3(), (256, 384, 512), i8),
+        ("K3", "256x128x128", *k3(block_m=256), (512, 256, 384), fp8),
+        ("K3", "grid_order nm", *k3(grid_order="nm"), (384, 256, 256), fp8),
+        ("K3", "f32 dequant_inputs",
+         *k3(compute_dtype=f32, scale_application="dequant_inputs"),
+         (256, 256, 256), fp8),
+        ("K3", "full size", *k3(), full, fp8),
     ]
-    sources = [sg.kernel_source(**v) for v in variants]
-    sources += ["#define STORAGE_INT8 %d\n" % i + _build.read_csrc("scaled_gemm.cu")
-                for i in (0, 1)]
-    sources.append(_build.read_csrc("flash_attention.cu"))
-    sources.append(_build.read_csrc("ssd.cu"))
+
+    # ----------------------------------------------------------- 2. build
+    # every library of phase 3's blocked cases, the single-block kernel's
+    # two and the attention and SSD kernels
+    cuda = _build.read_csrc("scaled_gemm.cu")
+    sources = {sg.with_defines(blk.defines(m, n, k, dtype), cuda)
+               for _, _, _, _, blk, (m, n, k), dtype in cases}
+    sources |= {sg.with_defines(sg.monolith_defines(dt), cuda)
+                for dt in (fp8, i8)}
+    sources = sorted(sources) + [_build.read_csrc("flash_attention.cu"),
+                                 _build.read_csrc("ssd.cu")]
     t0 = time.perf_counter()
     _build.build_many(sources)
     print(f"build: {len(sources)} sources with nvcc in parallel, "
@@ -206,70 +314,28 @@ def main() -> int:
                 fail(f"stream_ptr gave {got}, the current stream is {want}")
     print("stream_ptr: the current stream's handle, on two streams")
 
-    def rel_err(got, want):
-        want = want.float()
-        return ((got.float() - want).abs().max()
-                / (want.abs().max().clamp_min(1e-30))).item()
+    def path_of(lib):
+        """Which blocked kernel a scaled_gemm.cu library holds."""
+        fn = lib.sg_blocked_path
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        return "wgmma" if fn() else "mma_sync"
 
-    def k3(**kw):
-        def kernel(*p):
-            return sg.scaled_gemm(*p, **kw)
+    def smem_of(lib):
+        """The dynamic shared memory its blocked kernel's launch asks for."""
+        fn = lib.sg_blocked_smem
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        return fn()
 
-        def plain(*p):
-            return sg.blocked_reference(
-                *p, block_k=kw.get("block_k", 128),
-                scale_application=kw.get("scale_application", "scale_acc"),
-                compute_dtype=kw.get("compute_dtype", bf16))
-        return kernel, plain
-
-    def k1(genome, ks):
-        run = module(genome)
-
-        def plain(a, b, a_s, b_s):
-            return sg.blocked_reference(
-                a, b, a_s, b_s, block_k=genome.block_k, k_split=ks,
-                scale_application=genome.scale_application,
-                compute_dtype=getattr(torch, genome.compute_dtype))
-        return run, plain
-
-    mxu_split4 = SEED_MXU.replace(k_split=4)
-    cases = [
-        ("K1b", "MXU seed", *k1(SEED_MXU, 1), (1024, 1536, 7168), fp8),
-        ("K1b", "naive seed (f32, dequant_inputs)", *k1(SEED_NAIVE, 1),
-         (1024, 1536, 7168), fp8),
-        ("K1b", "grid_order nm", *k1(SEED_MXU.replace(grid_order="nm"), 1),
-         (1024, 576, 7168), fp8),
-        ("K1b", "dequant_inputs bf16",
-         *k1(SEED_MXU.replace(scale_application="dequant_inputs"), 1),
-         (6144, 4096, 512), fp8),
-        ("K1b", "MXU seed, full size", *k1(SEED_MXU, 1), (6144, 7168, 2048),
-         fp8),
-        ("K1a", "k_split 4", *k1(mxu_split4, 4), (1024, 1536, 7168), fp8),
-        ("K2", "single block", module(SEED_MONOLITH), sg.monolith_reference,
-         (128, 128, 256), fp8),
-        ("K2", "single block", module(SEED_MONOLITH), sg.monolith_reference,
-         (256, 256, 256), fp8),
-        ("K3", "128^3 scale_acc", *k3(), (256, 384, 512), fp8),
-        ("K3", "128^3 scale_acc int8", *k3(), (256, 384, 512), i8),
-        ("K3", "256x128x128", *k3(block_m=256), (512, 256, 384), fp8),
-        ("K3", "grid_order nm", *k3(grid_order="nm"), (384, 256, 256), fp8),
-        ("K3", "f32 dequant_inputs",
-         *k3(compute_dtype=f32, scale_application="dequant_inputs"),
-         (256, 256, 256), fp8),
-        ("K3", "full size", *k3(), (6144, 7168, 2048), fp8),
-        ("K4", "single block", lambda *p: sg.naive_scaled_gemm(*p),
-         sg.monolith_reference, (128, 128, 256), fp8),
-        ("K4", "single block", lambda *p: sg.naive_scaled_gemm(*p),
-         sg.monolith_reference, (256, 256, 256), fp8),
-    ]
     for name, run in (("K2", module(SEED_MONOLITH)),
-                      ("K4", lambda *p: sg.naive_scaled_gemm(*p))):
+                      ("K4", sg.naive_scaled_gemm)):
+        cases += [(name, "single block", run, sg.monolith_reference, None,
+                   shape, fp8) for shape in ((128, 128, 256), (256, 256, 256))]
         cases += [(name, "single block, M != N", run, sg.monolith_reference,
-                   (128, 384, 256), fp8),
+                   None, (128, 384, 256), fp8),
                   (name, "single block, int8", run, sg.monolith_reference,
-                   (256, 256, 256), i8)]
+                   None, (256, 256, 256), i8)]
     worst = {}
-    for name, what, kernel, plain, (m, n, k), dtype in cases:
+    for name, what, kernel, plain, blk, (m, n, k), dtype in cases:
         p = problem(m, n, k, dtype)
         before = sum(_build.LAUNCHES.values())
         got = kernel(*p)
@@ -278,12 +344,23 @@ def main() -> int:
         want = plain(*p)
         err = rel_err(got, want)
         worst[name] = max(worst.get(name, 0.0), err)
-        print(f"{name} {what:34s} M,N,K={m},{n},{k} {str(dtype)[6:]:13s} "
-              f"max_abs_err/max|plain| {err:.2e} launches {launched}")
+        line = (f"{name} {what:34s} M,N,K={m},{n},{k} {str(dtype)[6:]:13s} "
+                f"max_abs_err/max|plain| {err:.2e} launches {launched}")
+        if blk is not None:
+            lib = blk.library(m, n, k, dtype)
+            path, smem = path_of(lib), smem_of(lib)
+            line += (f" | {path} path, sg_blocked_smem {smem}, smem_bytes() "
+                     f"{blk.genome.smem_bytes()}")
+        print(line)
         if launched != 1:
             fail(f"{name} {what}: {launched} launches, expected 1")
         if not err <= TOL:
             fail(f"{name} {what}: error {err:.3e} above {TOL}")
+        if blk is not None and (path, smem) != (blk.genome.kernel_path(),
+                                                blk.genome.smem_bytes()):
+            fail(f"{name} {what}: the library runs the {path} path with "
+                 f"{smem} bytes; the genome says {blk.genome.kernel_path()} "
+                 f"with {blk.genome.smem_bytes()}")
     p = problem(1024, 1536, 7168)
     try:
         sg.naive_scaled_gemm(*p)
@@ -446,6 +523,7 @@ def main() -> int:
                                   for n, e in worst.items()))
 
     # ------------------------------------------------------ 4a. campaign
+    libraries_before = len(sg._LIBRARIES)
     _build.reset_launches()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as wd:
@@ -493,6 +571,32 @@ def main() -> int:
     for label, r in (("library", lib), ("mxu", seeds["mxu"]), ("best", best)):
         print(f"us per shape, {label} {r.rid}: " + " ".join(
             f"{key}={t:.1f}" for key, t in r.timings_us.items()))
+    # Each blocked genome's path by its rule, and the path of the library
+    # that each of its 18 shapes loaded: asking load_library again for the
+    # same #defines and text must find the library the campaign built.
+    libraries_built = len(sg._LIBRARIES)
+    for r in recs:
+        if r.genome is None or r.genome.style != "blocked":
+            continue
+        rule = r.genome.kernel_path()
+        took = set()
+        if r.status == "ok":
+            run = module(r.genome)
+            took = {path_of(sg.load_library(
+                run.__globals__["kernel_defines"](*cfg, fp8),
+                run.__globals__["CUDA_SOURCE"])) for cfg in BENCH_CONFIGS_18}
+        print(f"  {r.rid} {rule} path, launched {'+'.join(sorted(took)) or '-'}"
+              f" ({r.status}) | {r.genome.describe()}: " + " ".join(
+                  f"{key}={t:.1f}" for key, t in r.timings_us.items()))
+        if r.status == "ok" and took != {rule}:
+            fail(f"{r.rid}: its rule gives the {rule} path, its libraries "
+                 f"hold {sorted(took)}")
+    if len(sg._LIBRARIES) != libraries_built:
+        fail("a blocked genome's library was not the one the campaign built")
+    print(f"campaign built {libraries_built - libraries_before} blocked "
+          "libraries")
+    if seeds["mxu"].genome.kernel_path() != "wgmma":
+        fail("the MXU seed is not on the wgmma path")
     path_launches = {n: campaign_launches.get(COUNTER[n], 0)
                      for n in ("K1a", "K1b")}
 
@@ -803,20 +907,59 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
+    def device_ms(fn, args, reps=20):
+        """Device time per call, from the kernels torch.profiler saw."""
+        from torch.profiler import ProfilerActivity, profile
+        fn(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize()
+        return sum(e.time_range.end - e.time_range.start for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   ) / reps / 1e3
+
+    def scaled_mm(aq, bq, a_s, b_s):
+        """torch._scaled_mm with A's 1x128 and B's 128x128 block scales, in
+        the layouts its checks ask for (B and both scales outer-dim-major):
+        (the call, None), or (None, the installation's refusal).  The port
+        never calls it."""
+        args = (aq, bq.t().contiguous().t(), a_s.t().contiguous().t(),
+                b_s.t().contiguous().t())
+
+        def call(*_):
+            return torch._scaled_mm(args[0], args[1], scale_a=args[2],
+                                    scale_b=args[3], out_dtype=bf16)
+        try:
+            call()
+            torch.cuda.synchronize()
+            return call, None
+        except RuntimeError as e:
+            return None, str(e).strip().splitlines()[0]
+
+    def peak_of(genome, storage):
+        """The tensor cores that multiply a blocked genome's inputs exactly:
+        the stored 8-bit values under scale_acc, rounded bf16 values under
+        dequant_inputs in bf16, the FMA units for the f32 compute type."""
+        if genome.compute_dtype == "float32":
+            return "float32"
+        if genome.scale_application == "dequant_inputs":
+            return "bfloat16"
+        return str(storage)[6:]
+
     library_run = module(SEED_LIBRARY)
     timed = [
-        ("K1b", module(SEED_MXU), k1(SEED_MXU, 1)[1], (6144, 7168, 2048),
-         "bfloat16"),
-        ("K1a", module(mxu_split4), k1(mxu_split4, 4)[1], (1024, 1536, 7168),
-         "bfloat16"),
-        ("K2", module(SEED_MONOLITH), sg.monolith_reference, (256, 256, 256),
-         "float32"),
-        ("K3", k3()[0], k3()[1], (6144, 7168, 2048), "bfloat16"),
-        ("K4", lambda *p: sg.naive_scaled_gemm(*p), sg.monolith_reference,
-         (256, 256, 256), "float32"),
+        ("K1b", k1(SEED_MXU, 1), full),
+        ("K1a", k1(mxu_split4, 4), (1024, 1536, 7168)),
+        ("K2", (module(SEED_MONOLITH), sg.monolith_reference, None),
+         (256, 256, 256)),
+        ("K3", k3(), full),
+        ("K4", (sg.naive_scaled_gemm, sg.monolith_reference, None),
+         (256, 256, 256)),
     ]
     records = []
-    for name, kernel, plain, (m, n, k), cdtype in timed:
+    for name, (kernel, plain, blk), (m, n, k) in timed:
         p = problem(m, n, k)
         reps = 20 if m * n * k > 2**30 else 5
         err = rel_err(kernel(*p), plain(*p))
@@ -825,20 +968,41 @@ def main() -> int:
         library_ms = time_ms(library_run, p, reps)
         nbytes = (m * k + k * n + 4 * (m * (k // 128) + (k // 128)
                   * -(-n // 128)) + 2 * m * n)
+        peak = peak_of(blk.genome, fp8) if blk else "float32"
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * m * n * k / PEAK_OPS[cdtype] * 1e3
+        t_ops = 2 * m * n * k / PEAK_OPS[peak] * 1e3
         max_abs = (kernel(*p).float() - plain(*p).float()).abs().max().item()
-        records.append({
+        rec = {
             "name": name, "route": "cuda", "source": CSRC,
             "replaces": REPLACES[name], "launches": path_launches[name],
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms, "shape_mnk": [m, n, k],
-            "compute_dtype": cdtype, "rel_err": err})
-        print(f"{name} at M,N,K={m},{n},{k}: {ms:.4f} ms (plain {plain_ms:.4f}, "
-              f"library seed {library_ms:.4f}, bound {max(t_bytes, t_ops):.4f} "
-              f"by {records[-1]['bound_by']})")
+            "bound_peak": peak, "rel_err": err}
+        line = (f"{name} at M,N,K={m},{n},{k}: {ms:.4f} ms (plain "
+                f"{plain_ms:.4f}, library seed {library_ms:.4f}, bound "
+                f"{max(t_bytes, t_ops):.4f} by {rec['bound_by']} at the "
+                f"{peak} peak")
+        if blk is not None:   # K1/K3: the path, and the device time
+            rec["path"] = path_of(blk.library(m, n, k, fp8))
+            rec["device_ms"] = device_ms(kernel, p)
+            line += (f"; {rec['path']} path, device per call "
+                     f"{rec['device_ms']:.4f} ms")
+        if name in ("K1b", "K1a"):
+            call, refusal = scaled_mm(*p)
+            if call is None:
+                rec["scaled_mm"] = {"refused": refusal}
+                line += f"; torch._scaled_mm refuses: {refusal}"
+            else:
+                rec["scaled_mm"] = {"ms": time_ms(call, (), reps),
+                                    "rel_err": rel_err(call(), plain(*p))}
+                line += (f"; torch._scaled_mm {rec['scaled_mm']['ms']:.4f} ms"
+                         f" (rel err {rec['scaled_mm']['rel_err']:.2e})")
+        records.append(rec)
+        print(line + ")")
+    if not records[0]["ms"] < records[0]["library_ms"]:
+        fail("K1b is not faster than the library seed")
 
     # K5 at the longest prompt of 4d.  K6 at 4d's cache, read through its
     # strides as the engine reads it, with the lengths the slots ended at;
@@ -857,18 +1021,6 @@ def main() -> int:
                     nbytes=(2 * 16 + 2 * 2) * s_len * 128 * 2,
                     shape=f"B,Hq,Hkv,S,D=1,16,2,{s_len},128 causal")
 
-    def device_ms(fn, args, reps=20):
-        """Device time per call, from the kernels torch.profiler saw."""
-        from torch.profiler import ProfilerActivity, profile
-        fn(*args)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn(*args)
-            torch.cuda.synchronize()
-        return sum(e.time_range.end - e.time_range.start for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   ) / reps / 1e3
     k5 = k5_at(longest)
     g = torch.Generator(device=dev).manual_seed(4)
     q6 = torch.randn(SERVE["slots"], 16, 128, generator=g, device=dev).to(bf16)

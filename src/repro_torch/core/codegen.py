@@ -11,12 +11,16 @@ Every module defines:
 
 The ``blocked`` and ``naive`` styles embed the CUDA C++ kernel text of
 ``csrc/scaled_gemm.cu`` (the same text the library kernels K3/K4 build, so
-each kernel exists once) with the genome's constants as ``#define``s.
-Their ``run`` compiles that text with nvcc through ``kernels._build``, so a
-compiler error or a refused launch (too much shared memory) is a real
-platform compile error.  On CPU tensors ``run`` calls the kernel's plain
-version with the same numerics.  The ``library`` style dequantizes in f32
-and calls ``torch.matmul``, as the JAX package leaves that dot to XLA.
+each kernel exists once) with the genome's constants as ``#define``s;
+``WGMMA_PATH`` among them picks the blocked kernel by the one path rule,
+``kernels.scaled_gemm.wgmma_path``.  Their ``run`` builds that text with
+nvcc through ``kernels.scaled_gemm.load_library``, which keeps the loaded
+library per set of ``#define``s (a call neither rebuilds nor hashes the
+kernel text), so a compiler error or a refused launch (too much shared
+memory) is a real platform compile error.  On CPU tensors ``run`` calls
+the kernel's plain version with the same numerics.  The ``library`` style
+dequantizes in f32 and calls ``torch.matmul``, as the JAX package leaves
+that dot to XLA.
 """
 from __future__ import annotations
 
@@ -62,13 +66,14 @@ def run(a, b, a_scale, b_scale):
 '''
 
 _CUDA = """
-from repro_torch.kernels import _build
-
 CUDA_SOURCE = r'''$cuda'''
 """
 
 _MONOLITH_BODY = '''
-from repro_torch.kernels.scaled_gemm import check_operands, monolith_reference
+from repro_torch.kernels import _build
+from repro_torch.kernels.scaled_gemm import (check_operands, load_library,
+                                            monolith_defines,
+                                            monolith_reference)
 
 
 def run(a, b, a_scale, b_scale):
@@ -76,8 +81,7 @@ def run(a, b, a_scale, b_scale):
     m, n, k = check_operands(a, b, a_scale, b_scale)
     if a.device.type == "cpu":
         return monolith_reference(a, b, a_scale, b_scale)
-    source = "#define STORAGE_INT8 %d\\n" % (a.dtype == torch.int8) + CUDA_SOURCE
-    lib = _build.compile_source(source)
+    lib = load_library(monolith_defines(a.dtype), CUDA_SOURCE)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
     _build.launch("monolith", lib, "sg_monolith",
                   [a.data_ptr(), b.data_ptr(), a_scale.data_ptr(),
@@ -86,7 +90,10 @@ def run(a, b, a_scale, b_scale):
 '''
 
 _BLOCKED_BODY = '''
-from repro_torch.kernels.scaled_gemm import blocked_reference, check_operands
+from repro_torch.kernels import _build
+from repro_torch.kernels.scaled_gemm import (blocked_defines,
+                                            blocked_reference,
+                                            check_operands, load_library)
 
 BLOCK_M = $bm
 BLOCK_N = $bn
@@ -99,27 +106,31 @@ GRID_ORDER = $grid_order
 SCALE_APPLICATION = $scale_application
 
 
-def _kernel_source(bm, bn, bk, storage):
-    defines = {"BLOCK_M": bm, "BLOCK_N": bn, "BLOCK_K": bk,
-               "STORAGE_INT8": int(storage == torch.int8),
-               "COMPUTE_BF16": int(COMPUTE_DTYPE == torch.bfloat16),
-               "SCALE_ACC": int(SCALE_APPLICATION == "scale_acc"),
-               "GRID_NM": int(GRID_ORDER == "nm"),
-               "OUT_F32": int(OUT_DTYPE == torch.float32)}
-    return "".join("#define %s %d\\n" % kv for kv in defines.items()) + CUDA_SOURCE
+def kernel_defines(m, n, k, storage):
+    """The #defines of the kernel this module builds for an (M, N, K)
+    problem: the genome's blocks clamped to the (128-padded) problem dims,
+    with the path and the ring's depth by kernels.scaled_gemm's rule."""
+    return blocked_defines(block_m=min(BLOCK_M, -(-m // 128) * 128),
+                           block_n=min(BLOCK_N, -(-n // 128) * 128),
+                           block_k=min(BLOCK_K, -(-k // 128) * 128),
+                           storage=storage, compute_dtype=COMPUTE_DTYPE,
+                           scale_application=SCALE_APPLICATION,
+                           grid_order=GRID_ORDER, out_dtype=OUT_DTYPE)
 
 
 def run(a, b, a_scale, b_scale):
     m_in, n_in, k_in = check_operands(a, b, a_scale, b_scale)
-    # clamp blocks to (128-padded) problem dims, then pad to block multiples
-    bm = min(BLOCK_M, -(-m_in // 128) * 128)
-    bn = min(BLOCK_N, -(-n_in // 128) * 128)
-    bk = min(BLOCK_K, -(-k_in // 128) * 128)
+    defines = kernel_defines(m_in, n_in, k_in, a.dtype)
+    bm, bn, bk = defines["BLOCK_M"], defines["BLOCK_N"], defines["BLOCK_K"]
+    # pad to block multiples; the wgmma kernel reads B past N as zeros and
+    # writes no column past N, so there N is padded only to the 16 bytes a
+    # TMA row stride needs
+    n_pad = 16 if defines["WGMMA_PATH"] else bn
     a = _pad_axis(_pad_axis(a, bm, 0), bk, 1)
-    b = _pad_axis(_pad_axis(b, bk, 0), bn, 1)
+    b = _pad_axis(_pad_axis(b, bk, 0), n_pad, 1)
     a_scale = _pad_axis(_pad_axis(a_scale, bm, 0), bk // SCALE_BLOCK, 1)
     b_scale = _pad_axis(_pad_axis(b_scale, bk // SCALE_BLOCK, 0),
-                        bn // SCALE_BLOCK, 1)
+                        -(-b.shape[1] // SCALE_BLOCK), 1)
     m, k = a.shape
     n = b.shape[1]
     gk_total = k // bk
@@ -134,7 +145,7 @@ def run(a, b, a_scale, b_scale):
                                 compute_dtype=COMPUTE_DTYPE,
                                 out_dtype=OUT_DTYPE)
         return out[:m_in, :n_in]
-    lib = _build.compile_source(_kernel_source(bm, bn, bk, a.dtype))
+    lib = load_library(defines, CUDA_SOURCE)
     if ks > 1:   # f32 partials, summed in slice order below (no atomics)
         out = torch.empty((ks, m, n), dtype=torch.float32, device=a.device)
     else:

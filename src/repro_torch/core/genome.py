@@ -15,12 +15,30 @@ Two changes from the TPU genome:
 * The legality check is the kernel's real shared-memory need per block
   (``smem_bytes``) against the card's opt-in limit, in place of the TPU's
   VMEM working set.
+
+A blocked genome compiles to one of two kernels (``kernel_path``), by the
+rule of ``kernels.scaled_gemm.wgmma_path``:
+
+* ``wgmma`` — the family the campaign evolves from the MXU seed: the bf16
+  compute type under ``scale_acc`` with a tile of one, two or four 64x128
+  sub-tiles (64x128, 128x128, 256x128, 64x256, 128x256), at any
+  ``block_k``, ``k_split``, grid order and output type.  TMA brings the
+  raw fp8 (or int8) bytes into a ring as deep as fits; fp8 (or s8) wgmma
+  multiplies them, and the scales are applied per 128-K block in
+  registers.  Its shared memory does not depend on ``block_k``, which sets
+  the split-K slicing.
+* ``mma_sync`` — every other blocked genome: the f32 compute type (the
+  naive seed), ``dequant_inputs``, and every other tile (192x128 among
+  them).  One block per output tile stages bf16 or f32 slabs of
+  ``block_k`` and multiplies them with mma.sync or FMAs.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 from typing import Any
+
+from ..kernels import scaled_gemm as _sg
 
 # H100 SXM data sheet (NVIDIA), dense rates.  Used only by the writer's
 # napkin model (core.llm) and its findings text (core.knowledge): every
@@ -34,9 +52,6 @@ H100 = {
     "smem_per_block_optin": 232448,
 }
 
-# Shared memory one block may opt into when no card can be asked (H100).
-SMEM_OPTIN_FALLBACK = 232448
-
 SCALE_BLOCK = 128             # quantization block (AMD challenge spec)
 MMA_M = 16                    # rows of one mma.sync tile
 
@@ -47,8 +62,8 @@ def smem_limit() -> int:
     if torch.cuda.is_available():
         props = torch.cuda.get_device_properties(torch.cuda.current_device())
         return int(getattr(props, "shared_memory_per_block_optin",
-                           SMEM_OPTIN_FALLBACK))
-    return SMEM_OPTIN_FALLBACK
+                           _sg.SMEM_OPTIN))
+    return _sg.SMEM_OPTIN
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,21 +94,30 @@ class KernelGenome:
         return dataclasses.replace(self, **kw)
 
     # ------------------------------------------------------------ validation
+    def kernel_path(self) -> str:
+        """Which blocked kernel this genome compiles to, ``wgmma`` or
+        ``mma_sync`` (see the module docstring); ``""`` for the other
+        styles."""
+        if self.style != "blocked":
+            return ""
+        return "wgmma" if _sg.wgmma_path(**self._rule_args()) else "mma_sync"
+
     def smem_bytes(self) -> int:
         """Dynamic shared memory one block of the blocked kernel asks for
-        (``SMEM_BYTES`` in ``csrc/scaled_gemm.cu``): the A and transposed B
-        slabs in the compute dtype, each row padded (8 bf16 or 1 f32) against
-        bank conflicts, plus the slab's scales.  The sums live in registers.
-        The naive style holds the whole problem, which only the platform
-        can check against the actual (M, K, N)."""
+        (``SMEM_BYTES`` in ``csrc/scaled_gemm.cu``, by the formula of
+        ``kernels.scaled_gemm.smem_bytes``): the wgmma path's ring and
+        output staging, or the mma.sync path's padded slabs and their
+        scales.  The sums live in registers.  The naive style holds the
+        whole problem, which only the platform can check against the actual
+        (M, K, N)."""
         if self.style != "blocked":
             return 0
-        esize, pad = (2, 8) if self.compute_dtype == "bfloat16" else (4, 1)
-        n_sub = self.block_k // SCALE_BLOCK
-        tiles = (self.block_m + self.block_n) * (self.block_k + pad) * esize
-        scales = (self.block_m * n_sub
-                  + n_sub * (self.block_n // SCALE_BLOCK)) * 4
-        return tiles + scales
+        return _sg.smem_bytes(block_k=self.block_k, **self._rule_args())
+
+    def _rule_args(self) -> dict:
+        return dict(block_m=self.block_m, block_n=self.block_n,
+                    compute_bf16=self.compute_dtype == "bfloat16",
+                    scale_acc=self.scale_application == "scale_acc")
 
     def validate(self) -> list[str]:
         """Static (pre-submission) legality check.  Returns problem list; the

@@ -27,35 +27,62 @@ a_scale per (row, 128-K-block), b_scale per (128x128)-block, f32 accumulate.
 - HBM3: 80 GB @ {H100['hbm_bytes_per_s'] / 1e12:.2f} TB/s; L2 50 MB shared by
   all {H100['sms']} SMs.
 - Shared memory: up to {H100['smem_per_block_optin']} bytes per block (opt-in
-  above 48 KB), carved from each SM's 256 KB with L1.  The kernel stages one
-  (block_m x block_k) A slab and one (block_k x block_n) B slab per K step
-  in the compute dtype (bf16: 2 bytes, f32: 4 bytes); a configuration whose
-  slabs do not fit is refused at launch (the LDS-capacity analogue).
-- Blocks run in parallel on the SMs, in no fixed order: nothing carries
-  over between blocks, so each block loops over K itself and keeps its f32
-  sums in registers (block_m*block_n/256 per thread: tiles beyond 128x128
-  spill registers).
+  above 48 KB), carved from each SM's 256 KB with L1.
+- Two blocked kernels; the genome picks one at compile time.
+  * The wgmma path, the MXU seed's family: compute_dtype bfloat16,
+    scale_application scale_acc, and a tile of one, two or four 64x128
+    sub-tiles (64x128, 128x128, 256x128, 64x256, 128x256).  TMA brings raw
+    fp8 (or int8) bytes, one 128-K block of A and of B per stage, into a
+    ring as deep as fits (at most 8 stages of 128*(block_m + 2*block_n)
+    bytes: B is kept as it came and transposed in shared memory into the
+    K-major layout that wgmma needs for 8-bit operands).  Its shared memory
+    does not depend on block_k; block_k only sets the split-K slicing and
+    the padding of K.
+  * The mma.sync path, every other genome: compute_dtype float32 (the
+    naive seed), dequant_inputs, and every other tile (192x128, 256x256,
+    tiles not made of 64x128 sub-tiles).  It stages one (block_m x
+    block_k) A slab and one (block_k x block_n) B slab per K step in the
+    compute dtype (bf16: 2 bytes, f32: 4 bytes); a configuration whose
+    slabs do not fit is refused at launch (the LDS-capacity analogue).
+- Registers: a wgmma-path consumer warpgroup keeps the f32 sums of at most
+  two 64x128 sub-tiles and one 128-K partial, 232 registers a thread; a
+  larger tile, or three sub-tiles (192x128) that do not divide between two
+  consumers, runs the mma.sync path, whose 256 threads hold
+  block_m*block_n/256 sums each (beyond 128x128 they spill).
 
 ## Compute
-- Tensor cores: {H100['bf16_flops'] / 1e12:.0f} TFLOP/s dense bf16 (fp8
-  {H100['fp8_flops'] / 1e12:.0f}).  The kernel feeds them bf16 through
-  mma.sync m16n8k16 with an f32 sum: fp8 e4m3 and int8 values are exact in
-  bf16, the Matrix-Core-fragment analogue of MI300's MFMA 32x32x16 fp8.
+- Tensor cores: {H100['fp8_flops'] / 1e12:.0f} TFLOP/s dense fp8 and int8,
+  {H100['bf16_flops'] / 1e12:.0f} bf16.  fp8 e4m3 and int8 values are exact
+  inputs of the fp8/int8 tensor cores, so under scale_acc the wgmma path
+  multiplies the stored bytes directly (wgmma m64n128k32 e4m3, or s8 with
+  an exact s32 sum) and its least time is 2MNK / {H100['fp8_flops'] / 1e12:.0f}
+  TFLOP/s; the Matrix-Core-fragment analogue of MI300's MFMA 32x32x16 fp8.
+- 'scale_acc' adds each 128-K partial, times its row scale and column-block
+  scale, to the f32 sums in registers: the tensor cores' short internal
+  accumulation is promoted every 128 K.  'dequant_inputs' multiplies every
+  staged element by its scale and rounds it to the compute dtype before the
+  product: bf16 mma.sync m16n8k16, at half the fp8 rate at best.
 - An f32 compute dtype runs on the FMA units
-  ({H100['f32_flops'] / 1e12:.0f} TFLOP/s): ~15x below the tensor cores.
-- 'scale_acc' scales each 128-K partial sum in registers (row scale x
-  column-block scale); 'dequant_inputs' multiplies every staged element by
-  its scale before the product.
+  ({H100['f32_flops'] / 1e12:.0f} TFLOP/s): ~30x below the fp8 tensor cores.
 
 ## Grid
-- One block per (block_m, block_n) output tile, 256 threads; split-K adds
-  slices of the K loop as more blocks and writes f32 partials that a second
-  pass sums (no atomics).  Fewer than ~{H100['sms']} blocks leave SMs idle:
-  at M=1024 and 128x128 tiles a narrow N gives only a few dozen blocks.
-- grid_order mn walks N fastest (blockIdx.x), nm walks M fastest; which
-  operand neighbouring blocks share in L2 changes with it.
-- Device traffic: A is read (N/block_n) times, B (M/block_m) times, less
-  what L2 catches => bytes ~ M*K*(N/bn) + K*N*(M/bm) + 2*M*N.
+- wgmma path: a persistent grid of at most {H100['sms']} blocks walks the
+  work units (output tile x split-K slice); one producer warp issues the
+  TMA loads, three warps transpose B, one or two consumer warpgroups
+  multiply.  Fewer units than SMs leave SMs idle: at M=1024 and 128x128
+  tiles a narrow N gives only a few dozen tiles, which split-K multiplies.
+- mma.sync path: one block per (block_m, block_n) output tile, 256
+  threads; split-K adds slices of the K loop as more blocks.
+- Split-K writes f32 partials that a second pass sums in slice order (no
+  atomics): M*N*4 bytes written and read again per slice.
+- grid_order mn walks N fastest, nm walks M fastest; which operand
+  neighbouring tiles share in L2 changes with it.
+- Device and L2 traffic: A is read (N/block_n) times, B (M/block_m) times,
+  less what L2 catches => bytes ~ M*K*(N/bn) + K*N*(M/bm) + 2*M*N.  On the
+  wgmma path the work per 128-K block bounds it more than this traffic:
+  the transpose of B in shared memory, the scaling of each partial, the
+  stage handoffs and the epilogue.  A taller tile (256x128) spreads the
+  transpose of B over twice the products.
 """
 
 
@@ -75,8 +102,8 @@ def _tile_edits(g: KernelGenome) -> list:
     if g.style != "blocked":
         base = KernelGenome(style="blocked", block_m=128, block_n=128, block_k=128)
         return [("Re-structure as a blocked tensor-core kernel with 128^3 "
-                 "shared-memory tiles, f32 sums in registers, K loop inside "
-                 "the block.", base)]
+                 "tiles: fp8 wgmma fed by a TMA ring, f32 sums in registers, "
+                 "K loop inside the block.", base)]
     for attr in ("block_m", "block_n", "block_k"):
         cur = getattr(g, attr)
         for nxt in (cur * 2, cur // 2):
@@ -86,9 +113,10 @@ def _tile_edits(g: KernelGenome) -> list:
             if not cand.validate():
                 out.append((
                     f"Change {attr} from {cur} to {nxt}, keeping the other tile "
-                    f"dims fixed; re-check the staged slabs stay within the "
-                    f"shared memory of one block and all tile dims remain "
-                    f"multiples of {SCALE_BLOCK}.",
+                    f"dims fixed; re-check which kernel path the tile takes, "
+                    f"that its stages or slabs stay within the shared memory "
+                    f"of one block and all tile dims remain multiples of "
+                    f"{SCALE_BLOCK}.",
                     cand))
     return out
 
@@ -113,9 +141,10 @@ def _scale_edits(g: KernelGenome) -> list:
         + ("dequantize A/B elements while staging them in shared memory, "
            "before the tensor-core products."
            if nxt == "dequant_inputs" else
-           "stage raw (exactly-representable) fp8 values as bf16 and apply "
-           "a_scale (per row) and b_scale (per column-block) to the f32 "
-           "partial sums in registers once per 128-wide K sub-block."),
+           "multiply the raw (exactly-representable) fp8 values on the fp8 "
+           "tensor cores (the wgmma path) and apply a_scale (per row) and "
+           "b_scale (per column-block) to the f32 partial sums in registers "
+           "once per 128-wide K sub-block."),
         g.replace(scale_application=nxt))]
 
 
@@ -127,8 +156,9 @@ def _dtype_edits(g: KernelGenome) -> list:
         f"Switch the compute dtype to {nxt}: "
         + ("full-precision FMA products remove any bf16 rounding concern at "
            "a large throughput cost." if nxt == "float32" else
-           "fp8 e4m3 values are exactly representable in bf16, so the "
-           "tensor-core path (mma.sync) is numerically free."),
+           "fp8 e4m3 values are exact tensor-core inputs, so the "
+           "tensor-core path (fp8 wgmma under scale_acc, bf16 mma.sync "
+           "under dequant_inputs) is numerically free."),
         g.replace(compute_dtype=nxt))]
 
 
@@ -204,7 +234,8 @@ EXTRA_AVENUE_TEXTS = (
     "neighbouring addresses.",
     "Fuse the bf16 output cast into the register epilogue instead of a "
     "separate pass.",
-    "Double-buffer the shared-memory slabs (cp.async or TMA) so loads overlap "
-    "the tensor-core products.",
-    "Use wgmma (warpgroup products, Hopper only) in place of mma.sync.",
+    "Store the output tile with TMA so that the epilogue overlaps the next "
+    "tile's products.",
+    "Overlap the scaling of one 128-K partial with the next block's wgmma "
+    "(a second partial accumulator in registers).",
 )

@@ -323,7 +323,7 @@ class KernelScientist:
                            "direct translation into a CUDA kernel "
                            "(unoptimized: f32 FMA math, per-tile dequant)",
                            "first working tensor-core CUDA kernel "
-                           "(128^3 shared-memory tiles, mma.sync bf16)"),
+                           "(128^3 tiles, fp8 wgmma fed by a TMA ring)"),
              ) -> None:
         """Paper §3: the process starts from a few seed kernels."""
         if len(self.population) != 0:

@@ -17,6 +17,7 @@ rounding.  The kernels themselves are compared with these plain versions on
 the card by chip_smoke.py.
 """
 import json
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -182,12 +183,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         sg.scaled_gemm(a, b, a_s, b_s, **kw)
 
 
+def _source(**config):
+    return sg.with_defines(sg.blocked_defines(**config),
+                           _build.read_csrc("scaled_gemm.cu"))
+
+
 def test_kernel_source_is_the_one_csrc_file():
     cuda = _build.read_csrc("scaled_gemm.cu")
-    assert sg.kernel_source().endswith(cuda)
+    assert _source().endswith(cuda)
     for g in (SEED_MXU, SEED_MONOLITH):
         assert cuda in codegen.render_source(g)
-    src = sg.kernel_source(block_m=256, storage=torch.int8, grid_order="nm")
+    src = _source(block_m=256, storage=torch.int8, grid_order="nm")
     assert "#define BLOCK_M 256\n" in src and "#define STORAGE_INT8 1\n" in src
     assert "#define GRID_NM 1\n" in src
 
@@ -223,14 +229,139 @@ def test_launch_codes_map_to_refused_or_fault():
 
 # ------------------------------------------------------------------- genome
 def test_smem_bytes_is_the_kernel_formula():
-    # (BM + BN) * (BK + pad) * esize + scales; pad 8 bf16 / 1 f32
-    assert SEED_MXU.smem_bytes() == 256 * 136 * 2 + (128 + 1) * 4
+    # wgmma path: stages * (128 * (BM + 2 * BN) + 24 bytes of mbarriers)
+    # + 16 KB of output staging per consumer + 1 KB of alignment; 128x128
+    # holds 4 stages in 227 KB, whatever BK
+    assert SEED_MXU.smem_bytes() == 4 * (128 * 384 + 24) + 2 * 16384 + 1024
+    assert SEED_MXU.replace(block_k=512).smem_bytes() == SEED_MXU.smem_bytes()
+    # mma.sync path: (BM + BN) * (BK + pad) * esize + scales; pad 8 bf16 / 1 f32
+    dequant = SEED_MXU.replace(scale_application="dequant_inputs")
+    assert dequant.smem_bytes() == 256 * 136 * 2 + (128 + 1) * 4
     assert SEED_NAIVE.smem_bytes() == 256 * 129 * 4 + (128 + 1) * 4
     big = KernelGenome()     # 256^3 bf16 needs more than a block may have
     assert big.smem_bytes() > 232448
     assert any("shared memory" in e for e in big.validate())
     for g in (SEED_LIBRARY, SEED_NAIVE, SEED_MXU, SEED_MONOLITH):
         assert g.validate() == []
+
+
+# ---------------------------------------------------------------- path rule
+WGMMA_FAMILY = [SEED_MXU.replace(block_m=bm, block_n=bn, **kw)
+                for bm, bn in sg.WGMMA_TILES
+                for kw in ({}, {"block_k": 512, "k_split": 4},
+                           {"grid_order": "nm", "out_dtype": "float32"})]
+MMA_SYNC_GENOMES = [
+    SEED_NAIVE,                                            # f32 compute
+    SEED_MXU.replace(compute_dtype="float32"),             # f32, scale_acc
+    SEED_MXU.replace(scale_application="dequant_inputs"),  # bf16 dequant
+    SEED_MXU.replace(block_m=192),                         # three sub-tiles
+    SEED_MXU.replace(block_m=48),
+    SEED_MXU.replace(block_m=256, block_n=256),
+    SEED_MXU.replace(block_n=384),
+]
+
+
+@pytest.mark.parametrize("g", WGMMA_FAMILY, ids=lambda g: g.describe())
+def test_path_rule_sends_the_mxu_family_to_wgmma(g):
+    assert g.kernel_path() == "wgmma" and g.validate() == []
+    d = sg.blocked_defines(block_m=g.block_m, block_n=g.block_n,
+                           block_k=g.block_k, grid_order=g.grid_order)
+    assert d["WGMMA_PATH"] == 1 and d["RING_STAGES"] >= 2
+    # the ring is as deep as fits, whatever block_k
+    assert g.smem_bytes() <= sg.SMEM_OPTIN
+    assert g.smem_bytes() == g.replace(block_k=128).smem_bytes()
+
+
+@pytest.mark.parametrize("g", MMA_SYNC_GENOMES, ids=lambda g: g.describe())
+def test_path_rule_keeps_the_rest_on_mma_sync(g):
+    assert g.kernel_path() == "mma_sync"
+    d = sg.blocked_defines(
+        block_m=g.block_m, block_n=g.block_n, block_k=g.block_k,
+        compute_dtype=getattr(torch, g.compute_dtype),
+        scale_application=g.scale_application)
+    assert d["WGMMA_PATH"] == 0 and "RING_STAGES" not in d
+
+
+def test_rendered_module_builds_with_the_rule_defines():
+    ns: dict = {}
+    exec(codegen.render_source(SEED_MXU.replace(block_m=256, k_split=2)), ns)
+    d = ns["kernel_defines"](6144, 576, 7168, torch.float8_e4m3fn)
+    assert d == sg.blocked_defines(block_m=256, block_n=128, block_k=128)
+    assert (d["WGMMA_PATH"], d["RING_STAGES"]) == (1, 3)
+    # the blocks are clamped to the problem before the rule is applied
+    d = ns["kernel_defines"](256, 256, 256, torch.int8)
+    assert (d["BLOCK_M"], d["STORAGE_INT8"], d["WGMMA_PATH"]) == (256, 1, 1)
+    ns = {}
+    exec(codegen.render_source(SEED_MXU.replace(block_m=192)), ns)
+    assert ns["kernel_defines"](1024, 576, 7168, torch.float8_e4m3fn)[
+        "WGMMA_PATH"] == 0
+    src = _source(block_m=64)
+    assert src.startswith("#define BLOCK_M 64\n")
+    assert "#define WGMMA_PATH 1\n#define RING_STAGES 5\n" in src
+
+
+def test_cuda_text_holds_no_copy_of_the_rule():
+    """The kernel text reads the path and the ring's depth from the
+    defines; it decides neither, and only refuses a wgmma build it cannot
+    run."""
+    code = "\n".join(line.split("//")[0] for line in
+                     _build.read_csrc("scaled_gemm.cu").splitlines())
+    assert not re.search(r"#\s*define\s+(WGMMA_PATH|RING_STAGES)\b", code)
+    uses = [line.strip() for line in code.splitlines()
+            if re.search(r"\bWGMMA_PATH\b", line)]
+    assert uses == ["#ifndef WGMMA_PATH",
+                    '#error "WGMMA_PATH (which blocked kernel) comes from the '
+                    'caller"',
+                    "#if WGMMA_PATH",
+                    '#error "RING_STAGES (the ring\'s depth) comes with '
+                    'WGMMA_PATH from the caller"',
+                    "extern \"C\" int sg_blocked_path() { return WGMMA_PATH; }",
+                    "#if WGMMA_PATH", "#if WGMMA_PATH"]
+    for refusal in ("static_assert(COMPUTE_BF16 && SCALE_ACC",
+                    "static_assert(WG_SUBS == 1 || WG_SUBS == 2 || WG_SUBS == 4",
+                    "static_assert(RING_STAGES >= 2",
+                    "static_assert(SMEM_BYTES <= SMEM_OPTIN",
+                    "#ifndef RING_STAGES"):
+        assert refusal in code
+
+
+def test_load_library_is_keyed_by_the_defines(monkeypatch):
+    built = []
+
+    def fake_compile(source):
+        built.append(source)
+        return object()
+
+    monkeypatch.setattr(_build, "compile_source", fake_compile)
+    monkeypatch.setattr(sg, "_LIBRARIES", {})
+    d128 = sg.blocked_defines()
+    d256 = sg.blocked_defines(block_m=256)
+    lib = sg.load_library(d128)
+    assert sg.load_library(dict(d128)) is lib
+    assert sg.load_library(dict(reversed(list(d128.items())))) is lib
+    assert len(built) == 1 and built[0] == _source()
+    assert sg.load_library(d256) is not lib and len(built) == 2
+    mono = sg.load_library(sg.monolith_defines(torch.int8))
+    assert mono is not lib and len(built) == 3
+    # a module's own copy of the text is built as it is
+    own = sg.load_library(d128, "// edited\n")
+    assert own is not lib and built[-1].endswith("// edited\n")
+    # a call rebuilds nothing: the rendered modules go through the same dict
+    for g in (SEED_MXU, SEED_MONOLITH):
+        assert codegen.render_source(g).count("load_library(") == 1
+    assert len(built) == 4
+
+
+def test_k1_module_unpadded_n_matches_jax_module():
+    # N = 320 divides by 16, not by 128: the wgmma path leaves B unpadded.
+    # The last 128-column block keeps its scale from the 384-wide draw.
+    jp, tp = _problem(10, 256, 256, 384)
+    jp = (jp[0], jp[1][:, :320], jp[2], jp[3])
+    tp = (tp[0], tp[1][:, :320].contiguous(), tp[2], tp[3])
+    for g in (SEED_MXU, SEED_NAIVE):
+        jrun, _ = jcodegen.load_kernel(jcodegen.render_source(_jax_genome(g)))
+        run, _ = codegen.load_kernel(codegen.render_source(g))
+        _close(run(*tp), jrun(*jp, interpret=True))
 
 
 def test_genome_has_no_tpu_axis_and_round_trips():
