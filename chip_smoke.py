@@ -33,20 +33,25 @@ result line:
    2048 with window 2048 (the RG-LRU prefill's), GQA 1 (Hq = Hkv = 16,
    S = 333)) and
    K6 (``decode_attention``, bf16, 8 rows of a (8, 4096, 2, 128) cache read
-   through its strides: ragged kv_len with 4096 and one above 4096, and
-   short ones from 1 as a case of their own) and K7 (``kernels.ssd.ssd``,
-   H 80, P 64, N 128, x, B and C bf16, dt and A f32: B 1 S 1920 and B 1
-   S 1999 (ragged) with the model's decay, A from -1 to -16, x, B and C
-   read as views of one tensor as the model hands them over; B 2 S 1000
-   with a slow decay, dt * |A| in [1e-3, 1e-2] per token, whose state
-   crosses all 16 chunks).  For K5, K6 and K7 the max is taken per output
-   row (one batch, head and query; for K7's y one batch, token and head,
-   for its final state one batch, head and state index): a row that
+   through its strides: ragged kv_len with 4096 and one above 4096, short
+   ones from 1, and at the edges of its key split: lengths on and beside a
+   split boundary, kv_len = 1 beside full rows, kv_len far above S,
+   kv_len = 0 among live rows) and K7 (``kernels.ssd.ssd``, H 80, P 64,
+   N 128, x, B and C bf16, dt and A f32: B 1 S 1920 and B 1 S 1999
+   (ragged) with the model's decay, A from -1 to -16, x, B and C read as
+   views of one tensor as the model hands them over; B 2 S 1000 with a slow
+   decay, dt * |A| in [1e-3, 1e-2] per token; at the kernel's chunk L:
+   S = 1, L - 1 and L + 1, B 2 S 777, and a slow decay over S = 16L + 100,
+   whose state crosses 17 chunks).  For K5, K6 and K7 the max is taken per
+   output row (one batch, head and query; for K7's y one batch, token and
+   head, for its final state one batch, head and state index): a row that
    averages thousands of keys is a few hundredths in size, and a scale
    set by the largest row of the output would let a lost key block or
    warp pass.  K7's rows whose plain maximum is below 1e-6 of the
-   output's are skipped and counted; the slow-decay case must also tell
-   the final state apart from one that dropped the carry.
+   output's are skipped and counted; the slow-decay cases must also tell
+   the final state apart from one that dropped the carry.  K6 with
+   kv_len = 0 gives zeros, and K6 and K7 give the same bytes on two calls
+   with the same inputs.
 4. Main paths, each with the launch counts set to 0 just before it and
    read just after:
    a. the campaign: ``repro_torch.launch.scientist.run_campaign`` for 2
@@ -101,11 +106,13 @@ result line:
    ``scaled_dot_product_attention`` for K5
    (at the longest prompt of 4d, and in a line of its own at the
    shortest) and K6 (at 4d's cache and final lengths, one launch per layer
-   in turn, as a decode tick reads the cache); K7 at the longest prompt of
-   4f, for which no library call exists.  K5, K6 and SDPA are timed over
-   100 calls.  K5 and SDPA also get their device time per call
-   from torch.profiler (``device_ms``): the event time of a short kernel
-   includes the host's launch overhead.
+   in turn, as a decode tick reads the cache; also at each key split it
+   takes; K6 must be faster than SDPA on the card); K7 at the longest
+   prompt of 4f, for which no library call exists, with each stage kernel's
+   device time, and at each chunk L it builds for.  K5, K6 and SDPA are
+   timed over 100 calls.  K5, K6, SDPA and K7 also get their device time
+   per call from torch.profiler (``device_ms``): the event time of a short
+   kernel includes the host's launch overhead.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
@@ -295,8 +302,8 @@ def main() -> int:
                for _, _, _, _, blk, (m, n, k), dtype in cases}
     sources |= {sg.with_defines(sg.monolith_defines(dt), cuda)
                 for dt in (fp8, i8)}
-    sources = sorted(sources) + [_build.read_csrc("flash_attention.cu"),
-                                 _build.read_csrc("ssd.cu")]
+    sources = (sorted(sources) + [_build.read_csrc("flash_attention.cu")]
+               + [ssd.source(ch) for ch in ssd.CHUNKS])
     t0 = time.perf_counter()
     _build.build_many(sources)
     print(f"build: {len(sources)} sources with nvcc in parallel, "
@@ -432,6 +439,21 @@ def main() -> int:
         "K6", "B=8 Smax=4096 kv_len short", fa.decode_attention,
         fa.decode_attention_reference,
         cache_inputs([1, 2, 3, 5, 31, 32, 33, 63], 5)))
+    # K6's split edges: lengths on and beside a split boundary, kv_len = 1
+    # beside full rows (its row's other splits are empty), kv_len above S,
+    # kv_len = 0 among live rows (a zero row: any other value fails it)
+    sp = fa.DECODE_SPLIT
+    for what, lens in (
+            ("kv_len on split boundaries",
+             [sp, 2 * sp, 3 * sp, sp + 1, 2 * sp - 1, 4096 - sp, 4095, 4096]),
+            ("kv_len 1 beside full rows",
+             [1, 4096, 1, 4096, 2, 4096, 1, 4096]),
+            ("kv_len above S", [4097, 5000, 70000, 4096, 1, 2 * sp, 8191,
+                                2**31 - 1]),
+            ("kv_len 0 among live rows", [0, 4096, 0, 1, sp, 0, 777, 0])):
+        attn_cases.append(("K6", f"B=8 Smax=4096 {what}", fa.decode_attention,
+                           fa.decode_attention_reference,
+                           cache_inputs(lens, 6)))
     for name, what, kernel, plain, args in attn_cases:
         before = sum(_build.LAUNCHES.values())
         got = kernel(*args)
@@ -448,6 +470,14 @@ def main() -> int:
     q, k, v, lens = cache_inputs([0, 7], 2)
     if fa.decode_attention(q, k, v, lens)[0].any():
         fail("K6 with kv_len = 0 did not give zeros")
+    # two calls on the same inputs give the same bytes (no reduction order
+    # set by which block finishes first)
+    args = attn_cases[-4][4]
+    first, second = fa.decode_attention(*args), fa.decode_attention(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(first.view(torch.int16), second.view(torch.int16)):
+        fail("K6: two calls on the same inputs differ")
+    print("K6: kv_len = 0 gives zeros; two calls give the same bytes")
 
     def ssd_row_err(got, want, what):
         """Worst row of an SSD output (y: one batch, token and head; the
@@ -489,10 +519,19 @@ def main() -> int:
                 torch.randn(bsz, s, h, generator=g, device=dev))
         return x, dt, a, b, c
 
+    L = ssd.CHUNK
     ssd_cases = [("B=1 S=1920 model decay", ssd_inputs(1, 1920, 7)),
                  ("B=1 S=1999 ragged", ssd_inputs(1, 1999, 8)),
                  ("B=2 S=1000 slow decay", ssd_inputs(2, 1000, 9, slow=True,
-                                                      view=False))]
+                                                      view=False)),
+                 # the edges of K7's chunk, batch 2, and a slow decay whose
+                 # state crosses 16 chunks
+                 ("B=1 S=1", ssd_inputs(1, 1, 11)),
+                 (f"B=1 S=L-1={L - 1}", ssd_inputs(1, L - 1, 12)),
+                 (f"B=1 S=L+1={L + 1}", ssd_inputs(1, L + 1, 13)),
+                 ("B=2 S=777 model decay", ssd_inputs(2, 777, 14)),
+                 (f"B=1 S=16L+100={16 * L + 100} slow decay",
+                  ssd_inputs(1, 16 * L + 100, 15, slow=True))]
     for what, args in ssd_cases:
         before = sum(_build.LAUNCHES.values())
         y, st = ssd.ssd(*args)
@@ -510,15 +549,23 @@ def main() -> int:
             fail(f"K7 {what}: error y {y_err:.3e}, state {st_err:.3e} "
                  f"above {TOL}")
     # the last chunk's tokens alone: the final state a scan would give that
-    # dropped the carry, which the slow-decay case must tell apart
-    x, dt, a, b, c = ssd_cases[2][1]
-    tail = [v[:, -ssd.CHUNK:] for v in (x, dt, b, c)]
-    lost = ssd_row_err(ssd.ssd_reference(*tail[:2], a, *tail[2:])[1],
-                       ssd.ssd_reference(x, dt, a, b, c)[1], "no carry")
-    print(f"K7 slow decay: a scan that dropped the carry would miss the final"
-          f" state by {lost:.2e} of a row (the gate is {TOL})")
-    if not lost > 10 * TOL:
-        fail("the slow-decay case does not hold the carry to account")
+    # dropped the carry, which the slow-decay cases must tell apart
+    for case in (ssd_cases[2], ssd_cases[-1]):
+        x, dt, a, b, c = case[1]
+        tail = [v[:, -ssd.CHUNK:] for v in (x, dt, b, c)]
+        lost = ssd_row_err(ssd.ssd_reference(*tail[:2], a, *tail[2:])[1],
+                           ssd.ssd_reference(x, dt, a, b, c)[1], "no carry")
+        print(f"K7 {case[0]}: a scan that dropped the carry would miss the "
+              f"final state by {lost:.2e} of a row (the gate is {TOL})")
+        if not lost > 10 * TOL:
+            fail(f"K7 {case[0]} does not hold the carry to account")
+    args = ssd_cases[1][1]
+    (y1, st1), (y2, st2) = ssd.ssd(*args), ssd.ssd(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(y1.view(torch.int16), y2.view(torch.int16))
+            and torch.equal(st1.view(torch.int32), st2.view(torch.int32))):
+        fail("K7: two calls on the same inputs differ")
+    print("K7: two calls give the same bytes (y and the final state)")
     print("kernels: " + ", ".join(f"{n} (max err {e:.2e})"
                                   for n, e in worst.items()))
 
@@ -886,8 +933,7 @@ def main() -> int:
     m_longest = max(map(len, m_prompts))
     witness(model, mamba, "mamba2-2.7b", finished, rows=SERVE["slots"])
     ssm_drift(model, mamba, "mamba2-2.7b", finished, rows=SERVE["slots"])
-    trace_serving(model, mamba, "mamba2-2.7b", engine, m_prompts,
-                  "ssd_scan_kernel")
+    trace_serving(model, mamba, "mamba2-2.7b", engine, m_prompts, "ssd_")
     del engine, model, finished
     torch.cuda.empty_cache()
 
@@ -907,8 +953,8 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    def device_ms(fn, args, reps=20):
-        """Device time per call, from the kernels torch.profiler saw."""
+    def device_by_kernel(fn, args, reps=20):
+        """Device ms per call of each kernel torch.profiler saw."""
         from torch.profiler import ProfilerActivity, profile
         fn(*args)
         torch.cuda.synchronize()
@@ -916,9 +962,17 @@ def main() -> int:
             for _ in range(reps):
                 fn(*args)
             torch.cuda.synchronize()
-        return sum(e.time_range.end - e.time_range.start for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   ) / reps / 1e3
+        by = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.name.split("(")[0].split("<")[0]
+                by[name] = (by.get(name, 0.0)
+                            + (e.time_range.end - e.time_range.start) / reps / 1e3)
+        return by
+
+    def device_ms(fn, args, reps=20):
+        """Device time per call, from the kernels torch.profiler saw."""
+        return sum(device_by_kernel(fn, args, reps).values())
 
     def scaled_mm(aq, bq, a_s, b_s):
         """torch._scaled_mm with A's 1x128 and B's 128x128 block scales, in
@@ -1063,11 +1117,14 @@ def main() -> int:
         line = (f"{name} at {t['shape']}: {ms:.4f} ms (plain {plain_ms:.4f}, "
                 f"sdpa {library_ms:.4f}, bound {max(t_bytes, t_ops):.4f} by "
                 f"{rec['bound_by']}")
-        if name == "K5":
-            rec["device_ms"] = device_ms(t["kernel"], t["sets"][0])
-            rec["library_device_ms"] = device_ms(t["library"], t["sets"][0])
-            line += (f"; device per call {rec['device_ms']:.4f}, sdpa "
-                     f"{rec['library_device_ms']:.4f}")
+        # device time per call, over the same sets in turn
+        sets, reps = t["sets"], max(10, 200 // len(t["sets"]))
+        rec["device_ms"] = device_ms(
+            lambda: [t["kernel"](*a) for a in sets], (), reps) / len(sets)
+        rec["library_device_ms"] = device_ms(
+            lambda: [t["library"](*a) for a in sets], (), reps) / len(sets)
+        line += (f"; device per call {rec['device_ms']:.4f}, sdpa "
+                 f"{rec['library_device_ms']:.4f}")
         print(line + ")")
         return rec
 
@@ -1081,6 +1138,22 @@ def main() -> int:
                                     "library_device_ms", "max_abs_err",
                                     "row_rel_err")}
     records.append(attn_record("K6", k6))
+    # K6 at each split it takes, in turn, over 4d's cache layers
+    records[-1]["splits"] = {}
+    for split in fa.DECODE_SPLITS:
+        def at_split(q, k, v, n, split=split):
+            return fa.decode_at_split(q, k, v, n, split)
+        ev = time_sets(at_split, k6_sets, 100)
+        dev_ms = device_ms(lambda: [at_split(*a) for a in k6_sets], (), 10
+                           ) / len(k6_sets)
+        err = row_err(at_split(*k6_sets[0]), k6["plain"](*k6_sets[0]))
+        records[-1]["splits"][split] = {"ms": ev, "device_ms": dev_ms,
+                                        "row_rel_err": err}
+        print(f"K6 split {split} keys a block: {ev:.4f} ms, device per call "
+              f"{dev_ms:.4f} (worst row {err:.2e})"
+              + (" <- kept" if split == fa.DECODE_SPLIT else ""))
+    if not records[-1]["device_ms"] < records[-1]["library_device_ms"]:
+        fail("K6 is not faster than SDPA on the card")
 
     # K7 at the longest prompt of 4f, x, B and C read as views of one
     # (1, S, H*P + 2N) tensor, as the model hands them over.  No PyTorch
@@ -1094,10 +1167,13 @@ def main() -> int:
     want, want_state = ssd.ssd_reference(*args)
     ms = time_ms(ssd.ssd, args, 20)
     plain_ms = time_ms(ssd.ssd_reference, args, 3)
+    stages = device_by_kernel(ssd.ssd, args)
+    # per head and chunk of c tokens c(c+1)/2 * P inside the chunk, c*N*P
+    # for C . s_in and c*N*P for the state; per chunk c(c+1)/2 * N for C B^T
     chunks = [min(ssd.CHUNK, m_longest - i)
               for i in range(0, m_longest, ssd.CHUNK)]
-    macs = h7 * sum(c * (c + 1) // 2 * (n7 + p7) + 2 * c * n7 * p7
-                    for c in chunks)
+    macs = sum(h7 * (c * (c + 1) // 2 * p7 + 2 * c * n7 * p7)
+               + c * (c + 1) // 2 * n7 for c in chunks)
     nbytes = (2 * m_longest * h7 * p7 * 2 + m_longest * h7 * 4
               + 2 * m_longest * n7 * 2 + h7 * 4 + h7 * n7 * p7 * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1112,11 +1188,32 @@ def main() -> int:
         "shape": f"B,S,H,P,N=1,{m_longest},{h7},{p7},{n7} model decay",
         "row_rel_err": ssd_row_err(got, want, "phase 5 y"),
         "state_row_rel_err": ssd_row_err(got_state, want_state,
-                                         "phase 5 state")})
+                                         "phase 5 state"),
+        "device_ms": sum(stages.values()), "stages_device_ms": stages,
+        "chunk": ssd.CHUNK})
     print(f"K7 at {records[-1]['shape']}: {ms:.4f} ms (plain {plain_ms:.4f}, "
           f"library none, bound {max(t_bytes, t_ops):.4f} by "
           f"{records[-1]['bound_by']}: {nbytes / 1e6:.1f} MB, "
-          f"{2 * macs / 1e9:.2f} GFLOP)")
+          f"{2 * macs / 1e9:.2f} GFLOP; device per call "
+          f"{records[-1]['device_ms']:.4f}: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in stages.items()) + ")")
+    # K7 at each chunk it builds for, the plain version at the same chunk
+    records[-1]["chunks"] = {}
+    for ch in ssd.CHUNKS:
+        def at_chunk(*a, ch=ch):
+            return ssd.scan(*a, chunk=ch)
+        ev = time_ms(at_chunk, args, 20)
+        by = device_by_kernel(at_chunk, args)
+        err = ssd_row_err(at_chunk(*args)[0],
+                          ssd.ssd_reference(*args, chunk=ch)[0], f"L={ch} y")
+        records[-1]["chunks"][ch] = {"ms": ev, "device_ms": sum(by.values()),
+                                     "stages_device_ms": by,
+                                     "row_rel_err": err}
+        print(f"K7 chunk L={ch}: {ev:.4f} ms, device per call "
+              f"{sum(by.values()):.4f}: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in by.items())
+              + f" (worst row {err:.2e})"
+              + (" <- kept" if ch == ssd.CHUNK else ""))
     torch.cuda.synchronize()
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

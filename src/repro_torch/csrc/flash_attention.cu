@@ -66,7 +66,7 @@
 // store, no cluster multicast of K and V to the 8 heads of a group, only
 // D = 128 instantiated.
 
-// --- K6, flash_decode_kernel ------------------------------------------------
+// --- K6, flash_decode_kernel + flash_decode_merge_kernel ---------------------
 // Replaces repro/kernels/flash_attention.py `_decode_body` +
 // `decode_attention` (the pallas_call at line 232): one new token per row
 // against a KV cache of which the first kv_len[b] positions are valid.
@@ -75,18 +75,30 @@
 // for 4*group*D operations, 2*group operations per byte, so the bytes
 // bound it: sum_b min(kv_len[b], S) * Hkv * D * 4 bytes over 3.35 TB/s.
 //
-// Design.  As on the TPU, the GQA group (group <= 16 query heads sharing
-// one KV head) forms the rows of the product, one block per (b, hkv); the
-// block loads its own kv_len[b] (the TPU's scalar prefetch), clamps it to
-// [0, S] (an idle serving slot can count past S, and then every position
-// is valid) and stops there.  So that one block keeps enough loads in
-// flight, its 8 warps split the keys: warp w takes the 32-key tiles w,
-// w + 8, ..., stages them in its own shared memory, and keeps its own
-// online softmax in registers with the same mma.sync fragments as K5
-// (rows past the group are zero).  At the end the warps' (max, sum,
-// output) are merged through shared memory.  kv_len = 0 gives zeros, as
-// the Pallas kernel does.  A split of the keys across blocks (split-KV,
-// to fill 132 SMs when B * Hkv is small) is left for a later change.
+// Design (flash-decoding).  As on the TPU, the GQA group (group <= 16
+// query heads sharing one KV head) forms the rows of the product.  One
+// block per (b, hkv) would give 16 blocks to 132 SMs at the served batch,
+// so the keys are split as well: the grid is (B * Hkv) x ceil(S / split),
+// sized from the cache's S and not from kv_len, which lives on the card
+// and would cost the host a sync to read.  A block loads its own
+// kv_len[b], clamps it to [0, S] (an idle serving slot can count past S,
+// and then every position is valid), and takes keys [i * split,
+// min((i + 1) * split, len)); a block whose split starts at or past len
+// writes an empty partial (max NEG_INF, sum 0) and returns.  Its 4 warps
+// take 32-key tiles in turn; each warp issues the cp.async loads of all
+// its K and V tiles at once (one commit group per tile, rows past len
+// zero-filled), so its loads stay in flight while it multiplies the tiles
+// that have arrived.  Q K^T and P V are mma.sync m16n8k16 with K and V
+// read by ldmatrix from their [key][D] rows (V with .trans), rows padded
+// by 8 bf16 so that ldmatrix hits 32 distinct banks.  The softmax is K5's
+// softmax_raw (raw scores, the max moved lazily) and rescale_rows, so the
+// file keeps one softmax rule.  The warps' (max, sum, output) are merged
+// through shared memory into the block's partial: f32 output rows, their
+// max (raw units) and sum, in scratch that the wrapper allocates.  A
+// second kernel, launched by the same fa_decode call on the same stream,
+// merges each query row's partials in split order (no atomics: two calls
+// give the same bytes) and normalises; kv_len = 0 leaves every partial
+// empty and gives zeros, as the Pallas kernel does.
 
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda call is linked
 #include <cuda_runtime.h>
@@ -98,9 +110,11 @@ typedef __nv_bfloat16 bf16;
 #define NEG_INF (-1e30f)
 #define LOG2E 1.4426950408889634f
 #define PAD 8            // bf16 of padding per staged row (bank spread)
-#define DEC_WARPS 8
+#define DEC_WARPS 4
 #define DEC_THREADS (DEC_WARPS * 32)
-#define DK 32                // decode keys per warp step
+#define DK 32                // decode keys per warp tile
+#define DEC_MAX_SPLIT 256    // decode keys per block at most (shared memory)
+#define DEC_MAX_SPLITS 1024  // blocks along one cache row at most (merge)
 
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -116,10 +130,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
@@ -205,77 +215,6 @@ __device__ __forceinline__ void rescale_rows(float (&o)[NO][4], float a0,
     o[n][1] *= a0;
     o[n][2] *= a1;
     o[n][3] *= a1;
-  }
-}
-
-// One online-softmax step for the two rows (g, g + 8) a lane holds: `s`
-// holds the scaled logits (log2 units, NEG_INF where masked) of NT key
-// tiles of 8; on return it holds the probabilities rounded to bf16, and
-// the max, the lane's partial sums and the output rows are rescaled.
-template <int NT, int NO>
-__device__ __forceinline__ void softmax_step(float (&s)[NT][4], float& m0,
-                                             float& m1, float& l0, float& l1,
-                                             float (&o)[NO][4]) {
-  float mx0 = m0, mx1 = m1;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-  }
-  mx0 = quad_max(mx0);
-  mx1 = quad_max(mx1);
-  const float a0 = m0 <= NEG_INF / 2 ? 0.f : exp2f(m0 - mx0);
-  const float a1 = m1 <= NEG_INF / 2 ? 0.f : exp2f(m1 - mx1);
-  m0 = mx0;
-  m1 = mx1;
-  l0 *= a0;
-  l1 *= a1;
-  rescale_rows(o, a0, a1);
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float m = e < 2 ? m0 : m1;
-      const float p = s[j][e] <= NEG_INF / 2 ? 0.f : round_bf16(exp2f(s[j][e] - m));
-      s[j][e] = p;
-      if (e < 2) l0 += p; else l1 += p;
-    }
-  }
-}
-
-// o += P V for 16 keys per k-step: P comes from the S fragments of key
-// tiles 2kk and 2kk+1; sVt is V transposed, [D][ldv].
-template <int NT, int D>
-__device__ __forceinline__ void pv_product(const float (&s)[NT][4],
-                                           const bf16* sVt, int ldv, int g,
-                                           int t, float (&o)[D / 8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                           pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                           pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                           pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const bf16* vr = sVt + (n * 8 + g) * ldv + kk * 16 + 2 * t;
-      mma_bf16(o[n], a, ld32(vr), ld32(vr + 8));
-    }
-  }
-}
-
-// s = Q K^T for NT key tiles of 8; sK is [keys][ldk].
-template <int NT, int D>
-__device__ __forceinline__ void qk_product(const uint32_t (&qf)[D / 16][4],
-                                           const bf16* sK, int ldk, int g,
-                                           int t, float (&s)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const bf16* kr = sK + (j * 8 + g) * ldk + kk * 16 + 2 * t;
-      mma_bf16(s[j], qf[kk], ld32(kr), ld32(kr + 8));
-    }
   }
 }
 
@@ -696,26 +635,145 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------------------- K6: decode pieces
+// 16 bytes global -> shared, zeros where !valid (src-size 0 reads nothing)
+__device__ __forceinline__ void cp_async16(const bf16* dst, const bf16* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8.  Without .trans register i holds matrix i's (row g,
+// columns 2t, 2t+1); with .trans its (rows 2t, 2t+1, column g).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// One 32-key tile of a warp: s = Q K^T (raw), masked past `k_hi` when EDGE,
+// K5's softmax step, and o += P V.  tk, tv: [DK][LD] K and V rows.
+template <int D, bool EDGE>
+__device__ __forceinline__ void decode_tile(const uint32_t (&qf)[D / 16][4],
+                                            const bf16* tk, const bf16* tv,
+                                            int k0, int k_hi, float sl2,
+                                            int lane, float& m0, float& m1,
+                                            float& l0, float& l1,
+                                            float (&o)[D / 8][4]) {
+  constexpr int LD = D + PAD;
+  const int t = lane & 3, mi = lane >> 3;
+  float s[DK / 8][4];
+#pragma unroll
+  for (int j = 0; j < DK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int jp = 0; jp < DK / 16; ++jp) {   // keys as B's columns
+      uint32_t kf[4];
+      ldsm_x4(kf, tk + (16 * jp + (mi >> 1) * 8 + (lane & 7)) * LD + 16 * kk
+                      + (mi & 1) * 8);
+      mma_bf16(s[2 * jp], qf[kk], kf[0], kf[1]);
+      mma_bf16(s[2 * jp + 1], qf[kk], kf[2], kf[3]);
+    }
+  }
+  if (EDGE) {
+#pragma unroll
+    for (int j = 0; j < DK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k0 + j * 8 + 2 * t + (e & 1) >= k_hi) s[j][e] = NEG_INF;
+  }
+  float a0, a1;
+  softmax_raw<DK / 8, EDGE>(s, sl2, m0, m1, l0, l1, a0, a1);
+  rescale_rows(o, a0, a1);
+#pragma unroll
+  for (int kk = 0; kk < DK / 16; ++kk) {
+    const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                           pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                           pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                           pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {   // V's [key][D] rows, transposed
+      uint32_t vf[4];
+      ldsm_x4_t(vf, tv + (16 * kk + (mi & 1) * 8 + (lane & 7)) * LD + 16 * dp
+                        + (mi >> 1) * 8);
+      mma_bf16(o[2 * dp], a, vf[0], vf[1]);
+      mma_bf16(o[2 * dp + 1], a, vf[2], vf[3]);
+    }
+  }
+}
+
+// Block (b * Hkv + hkv, i): keys [i * split, min((i + 1) * split, len)) ->
+// the partial of split i: part_o (B*Hkv, nsplit, group, D) f32 unnormalised
+// rows, part_ml (B*Hkv, nsplit, group, 2) their max (raw units) and sum.
 template <int D>
 __global__ void __launch_bounds__(DEC_THREADS)
 flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v,
-                    const int* __restrict__ kv_len, bf16* __restrict__ o,
-                    int S, int Hq, int group, int qsb, int qsh, int ksb,
-                    int ksh, int kss, int vsb, int vsh, int vss, float scale) {
-  constexpr int LD = D + PAD;    // sK row stride
-  constexpr int LDV = DK + PAD;  // sVt row stride
-  constexpr int CH = D / 8;
-  constexpr int WARP_SMEM = DK * LD + D * LDV;  // bf16 per warp
+                    const int* __restrict__ kv_len, float* __restrict__ part_o,
+                    float* __restrict__ part_ml, int S, int Hkv, int group,
+                    int split, int qsb, int qsh, int ksb, int ksh, int kss,
+                    int vsb, int vsh, int vss, float scale) {
+  constexpr int LD = D + PAD;
+  constexpr int TILE = DK * LD;   // bf16 of one K or V tile
   extern __shared__ __align__(16) unsigned char smem[];
-  const int hk = blockIdx.x, b = blockIdx.y;
+  const int bh = blockIdx.x, sp = blockIdx.y, nsplit = gridDim.y;
+  const int b = bh / Hkv, hk = bh % Hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  bf16* sK = reinterpret_cast<bf16*>(smem) + warp * WARP_SMEM;  // [DK][LD]
-  bf16* sVt = sK + DK * LD;                                      // [D][LDV]
   const int len = min(max(kv_len[b], 0), S);
+  const int k_lo = sp * split, k_hi = min(k_lo + split, len);
+  float* po = part_o + ((size_t)bh * nsplit + sp) * group * D;
+  float* pml = part_ml + ((size_t)bh * nsplit + sp) * group * 2;
+  if (k_lo >= k_hi) {   // an empty split
+    for (int r = tid; r < group; r += DEC_THREADS) {
+      pml[2 * r] = NEG_INF;
+      pml[2 * r + 1] = 0.f;
+    }
+    return;
+  }
+
+  // warp w takes tiles w, w + 4, ... of the split: all its loads at once,
+  // one commit group per tile
+  const int per_warp = split / (DK * DEC_WARPS);
+  bf16* sw = reinterpret_cast<bf16*>(smem) + warp * per_warp * 2 * TILE;
   const bf16* kp = k + (size_t)b * ksb + (size_t)hk * ksh;
   const bf16* vp = v + (size_t)b * vsb + (size_t)hk * vsh;
+  int ntiles = 0;
+  for (int i = 0; i < per_warp; ++i) {
+    const int k0 = k_lo + (i * DEC_WARPS + warp) * DK;
+    if (k0 >= k_hi) break;
+    bf16* tk = sw + i * 2 * TILE;
+    for (int u = lane; u < DK * (D / 8); u += 32) {
+      const int r = u / (D / 8), c = (u % (D / 8)) * 8;
+      const bool ok = k0 + r < k_hi;
+      cp_async16(tk + r * LD + c, ok ? kp + (size_t)(k0 + r) * kss + c : k, ok);
+      cp_async16(tk + TILE + r * LD + c, ok ? vp + (size_t)(k0 + r) * vss + c : v,
+                 ok);
+    }
+    cp_async_commit();
+    ++ntiles;
+  }
 
   // rows g and g + 8 of the A fragment are query heads hk*group + g (+ 8);
   // rows past the group are zero
@@ -734,37 +792,17 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-
-  for (int k0 = warp * DK; k0 < len; k0 += DEC_WARPS * DK) {
-    for (int i = lane; i < DK * CH; i += 32) {
-      const int r = i / CH, c = (i % CH) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (k0 + r < len) val = *reinterpret_cast<const uint4*>(kp + (size_t)(k0 + r) * kss + c);
-      *reinterpret_cast<uint4*>(sK + r * LD + c) = val;
-    }
-    for (int i = lane; i < DK * CH; i += 32) {
-      const int r = i % DK, c = (i / DK) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (k0 + r < len) val = *reinterpret_cast<const uint4*>(vp + (size_t)(k0 + r) * vss + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sVt[(c + j) * LDV + r] = e[j];
-    }
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 1 < ntiles) cp_async_wait<1>(); else cp_async_wait<0>();
     __syncwarp();
-
-    float s[DK / 8][4];
-    qk_product<DK / 8, D>(qf, sK, LD, g, t, s);
-#pragma unroll
-    for (int j = 0; j < DK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + j * 8 + 2 * t + (e & 1);
-        s[j][e] = kpos < len ? s[j][e] * sl2 : NEG_INF;
-      }
-    }
-    softmax_step<DK / 8, D / 8>(s, m0, m1, l0, l1, acc);
-    pv_product<DK / 8, D>(s, sVt, LDV, g, t, acc);
-    __syncwarp();
+    const bf16* tk = sw + i * 2 * TILE;
+    const int k0 = k_lo + (i * DEC_WARPS + warp) * DK;
+    if (k0 + DK > k_hi)
+      decode_tile<D, true>(qf, tk, tk + TILE, k0, k_hi, sl2, lane, m0, m1, l0,
+                           l1, acc);
+    else
+      decode_tile<D, false>(qf, tk, tk + TILE, k0, k_hi, sl2, lane, m0, m1, l0,
+                            l1, acc);
   }
 
   // merge the warps' partial softmaxes: smem now holds, per warp and row,
@@ -790,7 +828,6 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     r[8 * D + 1] = acc[n][3];
   }
   __syncthreads();
-  bf16* op = o + ((size_t)b * Hq + (size_t)hk * group) * D;
   for (int i = tid; i < group * D; i += DEC_THREADS) {
     const int r = i / D, d = i % D;
     float mx = NEG_INF;
@@ -801,12 +838,60 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int w = 0; w < DEC_WARPS; ++w) {
       const float mw = sm[w * 16 + r];
       if (mw <= NEG_INF / 2) continue;  // this warp saw no key
-      const float c = exp2f(mw - mx);
+      const float c = exp2f((mw - mx) * sl2);
       num += so[(w * 16 + r) * D + d] * c;
       den += sl[w * 16 + r] * c;
     }
-    op[(size_t)r * D + d] = __float2bfloat16(num / (den == 0.f ? 1.f : den));
+    po[(size_t)r * D + d] = num;
+    if (d == 0) {
+      pml[2 * r] = mx;
+      pml[2 * r + 1] = den;
+    }
   }
+}
+
+// One block per query row (b, hq), one thread per column: the row's
+// partials summed in split order, then normalised.  o: (B, Hq, D) bf16.
+// The splits' (max, sum) are read at once, one split a thread, so that no
+// load waits on another.
+template <int D>
+__global__ void __launch_bounds__(D)
+flash_decode_merge_kernel(const float* __restrict__ part_o,
+                          const float* __restrict__ part_ml,
+                          bf16* __restrict__ o, int Hq, int Hkv, int group,
+                          int nsplit, float scale) {
+  __shared__ float sw[DEC_MAX_SPLITS];   // weight of each split, 0 if empty
+  __shared__ float red[D / 32];
+  const int row = blockIdx.x, b = row / Hq, hq = row % Hq;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t first = ((size_t)b * Hkv + hq / group) * nsplit * group + hq % group;
+  const float* ml = part_ml + first * 2;              // split i at + i*group*2
+  const float* po = part_o + first * D + tid;         // split i at + i*group*D
+  const float sl2 = scale * LOG2E;
+  float mx = NEG_INF;   // an empty split's max is NEG_INF
+  for (int i = tid; i < nsplit; i += D) mx = fmaxf(mx, ml[(size_t)i * group * 2]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  mx = red[0];
+#pragma unroll
+  for (int w = 1; w < D / 32; ++w) mx = fmaxf(mx, red[w]);
+  for (int i = tid; i < nsplit; i += D) {
+    const float l = ml[(size_t)i * group * 2 + 1];
+    // an empty split (its rows were not written) weighs 0
+    sw[i] = l == 0.f ? 0.f : exp2f((ml[(size_t)i * group * 2] - mx) * sl2);
+  }
+  __syncthreads();
+  float num = 0.f, den = 0.f;
+  for (int i = 0; i < nsplit; ++i) {
+    const float c = sw[i];
+    if (c == 0.f) continue;
+    num += po[(size_t)i * group * D] * c;
+    den += ml[(size_t)i * group * 2 + 1] * c;
+  }
+  o[(size_t)row * D + tid] = __float2bfloat16(den > 0.f ? num / den : 0.f);
 }
 
 extern "C" const char* sg_error_string(int err) {
@@ -891,20 +976,29 @@ static int launch_prefill(const void* q, const void* k, const void* v, void* o,
 
 template <int D>
 static int launch_decode(const void* q, const void* k, const void* v,
-                         const void* kv_len, void* o, int B, int Hq, int Hkv,
-                         int S, int qsb, int qsh, int ksb, int ksh, int kss,
-                         int vsb, int vsh, int vss, float scale,
+                         const void* kv_len, void* o, void* part_o,
+                         void* part_ml, int B, int Hq, int Hkv, int S,
+                         int split, int qsb, int qsh, int ksb, int ksh,
+                         int kss, int vsb, int vsh, int vss, float scale,
                          cudaStream_t stream) {
-  const int tiles = DEC_WARPS * (DK * (D + PAD) + D * (DK + PAD)) * (int)sizeof(bf16);
+  const int group = Hq / Hkv, nsplit = (S + split - 1) / split;
+  if (split <= 0 || split % (DK * DEC_WARPS) || split > DEC_MAX_SPLIT ||
+      group > 16 || nsplit > DEC_MAX_SPLITS)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = split * 2 * (D + PAD) * (int)sizeof(bf16);
   const int merge = DEC_WARPS * 16 * (D + 2) * (int)sizeof(float);
   const int bytes = tiles > merge ? tiles : merge;
   const int err = set_smem((const void*)flash_decode_kernel<D>, bytes);
   if (err) return err;
-  const dim3 grid(Hkv, B);
-  flash_decode_kernel<D><<<grid, DEC_THREADS, bytes, stream>>>(
+  flash_decode_kernel<D><<<dim3(B * Hkv, nsplit), DEC_THREADS, bytes, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)kv_len,
-      (bf16*)o, S, Hq, Hq / Hkv, qsb, qsh, ksb, ksh, kss, vsb, vsh, vss,
-      scale);
+      (float*)part_o, (float*)part_ml, S, Hkv, group, split, qsb, qsh, ksb,
+      ksh, kss, vsb, vsh, vss, scale);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  flash_decode_merge_kernel<D><<<B * Hq, D, 0, stream>>>(
+      (const float*)part_o, (const float*)part_ml, (bf16*)o, Hq, Hkv, group,
+      nsplit, scale);
   return (int)cudaGetLastError();
 }
 
@@ -924,16 +1018,20 @@ extern "C" int fa_prefill(const void* q, const void* k, const void* v, void* o,
   return (int)cudaErrorInvalidValue;
 }
 
-// o: contiguous (B, Hq, D) bf16; kv_len: (B,) int32 on the card.
+// o: contiguous (B, Hq, D) bf16; kv_len: (B,) int32 on the card; part_o
+// (B*Hkv, ceil(S / split), Hq / Hkv, D) and part_ml (..., 2) f32 scratch.
+// `split` keys per block: a multiple of 128 up to 256.
 extern "C" int fa_decode(const void* q, const void* k, const void* v,
-                         const void* kv_len, void* o, int B, int Hq, int Hkv,
-                         int S, int D, int qsb, int qsh, int ksb, int ksh,
+                         const void* kv_len, void* o, void* part_o,
+                         void* part_ml, int B, int Hq, int Hkv, int S, int D,
+                         int split, int qsb, int qsh, int ksb, int ksh,
                          int kss, int vsb, int vsh, int vss, float scale,
                          void* stream) {
   cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
   if (D == 128)
-    return launch_decode<128>(q, k, v, kv_len, o, B, Hq, Hkv, S, qsb, qsh, ksb,
-                              ksh, kss, vsb, vsh, vss, scale, st);
+    return launch_decode<128>(q, k, v, kv_len, o, part_o, part_ml, B, Hq, Hkv,
+                              S, split, qsb, qsh, ksb, ksh, kss, vsb, vsh, vss,
+                              scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -10,7 +10,10 @@ compiles it with nvcc for ``sm_90a``.
 * :func:`decode_attention` (K6) — one new token per row against a KV cache
   given by strides, of which the first ``kv_len[b]`` positions are valid.
   ``kv_len`` is clamped to ``[0, S]``; ``kv_len = 0`` gives zeros, as the
-  Pallas kernel does.
+  Pallas kernel does.  The kernel splits each row's keys across blocks
+  (:func:`decode_split_plan`) and merges their partials in a second kernel
+  of the same launch; the wrapper allocates the partials
+  (:func:`decode_scratch_shapes`).
 
 Each has its plain PyTorch version here (:func:`attention_reference`,
 :func:`decode_attention_reference`): the f32 oracles of ``ref`` (TF32 off)
@@ -33,6 +36,8 @@ from . import _build, ref
 
 HEAD_DIMS = (128,)        # the kernels' instantiations
 MAX_GROUP = 16            # GQA group rows of one mma.sync tile (K6)
+DECODE_SPLIT = 256        # keys per K6 block (timed against 128: PERF.md)
+DECODE_SPLITS = (128, 256)    # the splits K6 takes (4 warps x 32 keys, smem)
 _INT_MAX = 2**31 - 1
 
 
@@ -113,6 +118,48 @@ def decode_attention_reference(q, k, v, kv_len, *, scale=None):
     return torch.where((lens > 0)[:, None, None], out, 0.0)
 
 
+def decode_split_plan(s: int, split: int = DECODE_SPLIT) -> list:
+    """K6's blocks along a cache of ``s`` positions: the key range [lo, hi)
+    of each, in the order its partials are merged.  A block takes the
+    positions of its range below its row's ``kv_len``."""
+    if split not in DECODE_SPLITS:
+        raise ValueError(f"split {split}: K6 takes {DECODE_SPLITS}")
+    return [(lo, min(lo + split, s)) for lo in range(0, s, split)]
+
+
+def decode_scratch_shapes(b: int, hq: int, hkv: int, s: int, d: int,
+                          split: int = DECODE_SPLIT) -> dict:
+    """K6's f32 partials for one call: per (row, KV head) and block, the
+    group's unnormalised output rows (``o``) and their max and sum
+    (``ml``)."""
+    n = len(decode_split_plan(s, split))
+    return {"o": (b * hkv, n, hq // hkv, d), "ml": (b * hkv, n, hq // hkv, 2)}
+
+
+def decode_at_split(q, k, v, kv_len, split: int, *, scale=None):
+    """Launch K6 with ``split`` keys per block on CUDA operands that
+    :func:`decode_attention` has checked; counted as one launch of
+    ``decode_attention``, which calls it with :data:`DECODE_SPLIT`."""
+    if q.device.type != "cuda":
+        raise ValueError("decode_at_split launches the CUDA kernel: the "
+                         "operands must be on the card")
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    _check_card_operands({"q": q, "k": k, "v": v}, d)
+    shapes = decode_scratch_shapes(b, hq, hkv, s, d, split)
+    lens = kv_len.to(torch.int32).contiguous()
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+    part_o = torch.empty(shapes["o"], dtype=torch.float32, device=q.device)
+    part_ml = torch.empty(shapes["ml"], dtype=torch.float32, device=q.device)
+    _build.launch("decode_attention", _library(), "fa_decode",
+                  [q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                   out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr()],
+                  [b, hq, hkv, s, d, split, *q.stride()[:2], *k.stride()[:3],
+                   *v.stride()[:3]],
+                  q.device, floats=[_scale(d, scale)])
+    return out
+
+
 def decode_attention(q, k, v, kv_len, *, scale=None):
     """One-token decode attention (K6).  q: (B, Hq, D); k, v: (B, Hkv, S, D),
     any strides with unit stride along D; kv_len: (B,) integer lengths."""
@@ -133,13 +180,4 @@ def decode_attention(q, k, v, kv_len, *, scale=None):
         return decode_attention_reference(q, k, v, kv_len, scale=scale)
     if hq // hkv > MAX_GROUP:
         raise ValueError(f"GQA group {hq // hkv} above {MAX_GROUP}")
-    _check_card_operands({"q": q, "k": k, "v": v}, d)
-    lens = kv_len.to(torch.int32).contiguous()
-    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
-    _build.launch("decode_attention", _library(), "fa_decode",
-                  [q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                   out.data_ptr()],
-                  [b, hq, hkv, s, d, *q.stride()[:2], *k.stride()[:3],
-                   *v.stride()[:3]],
-                  q.device, floats=[_scale(d, scale)])
-    return out
+    return decode_at_split(q, k, v, kv_len, DECODE_SPLIT, scale=scale)

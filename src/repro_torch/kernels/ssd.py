@@ -4,7 +4,10 @@ Port of ``repro.kernels.ssd`` together with the pre-fusion its wrapper
 does in ``repro.kernels.ops.ssd``: the kernel lives in ``csrc/ssd.cu``,
 whose header note says what it replaces, what bounds it on the card and
 how its design answers that; ``_build`` compiles it with nvcc for
-``sm_90a``.
+``sm_90a``.  The kernel runs the scan as the four stages of the SSD
+algorithm (the chunks' C Bᵀ, each chunk's own state, a pass that carries
+the state across the chunks in order, the chunks' outputs), launched by
+one call; the wrapper allocates their scratch (:func:`scratch_shapes`).
 
 :func:`ssd` takes the model's operands as they come, x (B, S, H, P),
 dt (B, S, H), A (H,), B and C (B, S, N), and returns ``(y, state)``: y
@@ -33,20 +36,44 @@ import torch
 from . import _build
 from .ref import full_f32_matmul
 
-CHUNK = 64                # tokens per chunk, the kernel's and the plain version's
+CHUNK = 256               # tokens per chunk, the kernel's and the plain version's
+CHUNKS = (64, 128, 256)   # the chunks the kernel text builds for
 HEAD_DIM, D_STATE = 64, 128   # the kernel's instantiation
 _INT_MAX = 2**31 - 1
 
 
+def source(chunk: int = CHUNK) -> str:
+    """The kernel text built for chunks of ``chunk`` tokens."""
+    if chunk not in CHUNKS:
+        raise ValueError(f"chunk {chunk}: the SSD kernel builds for {CHUNKS}")
+    return f"#define SSD_CHUNK {chunk}\n" + _build.read_csrc("ssd.cu")
+
+
 @functools.lru_cache(maxsize=None)
-def _library():
-    return _build.compile_source(_build.read_csrc("ssd.cu"))
+def _library(chunk: int = CHUNK):
+    return _build.compile_source(source(chunk))
 
 
-def ssd_reference(x, dt, a, b, c):
-    """Plain version of K7: the chunked scan in f32 (TF32 off).
-    Returns (y in x's dtype, final state (B, H, N, P) f32)."""
-    chunk = CHUNK
+def scratch_shapes(bsz: int, s: int, h: int, chunk: int = CHUNK,
+                   n: int = D_STATE, p: int = HEAD_DIM) -> dict:
+    """The kernel's f32 scratch for one call: each chunk's state, overwritten
+    in place by the state entering it (B, H, nc, N, P); the cumsum of dt * A
+    in log2 units (B, H, nc * L); the chunks' C Bᵀ, its 16 x 16 blocks on or
+    below the diagonal, 256 values each (B, nc, T(T+1)/2, 256) with T = L /
+    16; and the chunks' C rows as bf16 A fragments, 16 rows by N per block
+    (B, nc, T, N * 8), kept as f32 words."""
+    nc = -(-s // chunk)
+    t16 = chunk // 16
+    return {"states": (bsz, h, nc, n, p),
+            "cums": (bsz, h, nc * chunk),
+            "cb": (bsz, nc, t16 * (t16 + 1) // 2, 256),
+            "cfrag": (bsz, nc, t16, n * 8)}
+
+
+def ssd_reference(x, dt, a, b, c, *, chunk: int = CHUNK):
+    """Plain version of K7: the chunked scan in f32 (TF32 off), in chunks
+    of ``chunk`` tokens.  Returns (y in x's dtype, final state (B, H, N, P)
+    f32)."""
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     nc = -(-s // chunk)
@@ -116,6 +143,31 @@ def _check_card_operands(x, dt, a, b, c) -> None:
                          f"for P = {HEAD_DIM}, N = {D_STATE}")
 
 
+def scan(x, dt, a, b, c, chunk: int = CHUNK):
+    """Launch the kernel built for chunks of ``chunk`` tokens on CUDA
+    operands that :func:`ssd` has checked; counted as one launch of
+    ``ssd``.  :func:`ssd` calls it with :data:`CHUNK`."""
+    if x.device.type != "cuda":
+        raise ValueError("scan launches the CUDA kernel: the operands must "
+                         "be on the card")
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    _check_card_operands(x, dt, a, b, c)
+    y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
+    state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    scratch = [torch.empty(shape, dtype=torch.float32, device=x.device)
+               for shape in scratch_shapes(bsz, s, h, chunk).values()]
+    _build.launch("ssd", _library(chunk), "ssd_scan",
+                  [x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+                   c.data_ptr(), y.data_ptr(), state.data_ptr(),
+                   *(t.data_ptr() for t in scratch)],
+                  [bsz, s, h, p, n, chunk, x.stride(0), x.stride(1),
+                   x.stride(2), *dt.stride(), b.stride(0), b.stride(1),
+                   c.stride(0), c.stride(1)],
+                  x.device)
+    return y, state
+
+
 def ssd(x, dt, a, b, c):
     """The SSD scan (K7).  x: (B, S, H, P); dt: (B, S, H) (softplus'd);
     a: (H,) negative; b, c: (B, S, N).  Returns (y (B, S, H, P) in x's
@@ -137,14 +189,4 @@ def ssd(x, dt, a, b, c):
         raise ValueError("x, dt, a, b and c must be on one device")
     if x.device.type == "cpu":
         return ssd_reference(x, dt, a, b, c)
-    _check_card_operands(x, dt, a, b, c)
-    y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
-    state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
-    _build.launch("ssd", _library(), "ssd_scan",
-                  [x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-                   c.data_ptr(), y.data_ptr(), state.data_ptr()],
-                  [bsz, s, h, p, n, x.stride(0), x.stride(1), x.stride(2),
-                   *dt.stride(), b.stride(0), b.stride(1), c.stride(0),
-                   c.stride(1)],
-                  x.device)
-    return y, state
+    return scan(x, dt, a, b, c)

@@ -188,3 +188,58 @@ def test_card_operand_contract(bad, exc):
         fa._check_card_operands({"q": x}, d)
     fa._check_card_operands(
         {"q": torch.zeros(1, 2, 32, 128, dtype=torch.bfloat16)}, 128)
+
+
+@pytest.mark.parametrize("s", [1, 31, 128, 4096, 4097])
+@pytest.mark.parametrize("split", fa.DECODE_SPLITS)
+def test_decode_split_plan_covers_every_position_once(s, split):
+    plan = fa.decode_split_plan(s, split)
+    covered = [pos for lo, hi in plan for pos in range(lo, hi)]
+    assert covered == list(range(s))           # each once, in merge order
+    assert all(hi - lo <= split for lo, hi in plan)
+    shapes = fa.decode_scratch_shapes(8, 16, 2, s, 128, split)
+    assert shapes == {"o": (16, len(plan), 8, 128), "ml": (16, len(plan), 8, 2)}
+
+
+def test_decode_split_merge_matches_the_plain_version(rng):
+    """K6's arithmetic on the CPU: each split's (max, sum, unnormalised
+    rows) over the keys of its range below kv_len, empty splits as (-inf,
+    0), merged in split order."""
+    b, hq, hkv, s, d, split = 3, 8, 2, 300, 32, 128
+    (_, q), (_, k), (_, v) = _qkv(rng, b, hq, hkv, s, d, "f32",
+                                  q_shape=(b, hq, d))
+    kv_len = torch.tensor([129, 0, 300])
+    group = hq // hkv
+    out = torch.zeros(b, hq, d)
+    for bi in range(b):
+        for h in range(hq):
+            n = min(int(kv_len[bi]), s)
+            parts = []
+            for lo, hi in fa.decode_split_plan(s, split):
+                hi = min(hi, n)
+                if lo >= hi:
+                    parts.append((-np.inf, 0.0, torch.zeros(d)))
+                    continue
+                sc = (k[bi, h // group, lo:hi] @ q[bi, h]) / np.sqrt(d)
+                m = sc.max()
+                p = torch.exp(sc - m)
+                parts.append((m, p.sum(), p @ v[bi, h // group, lo:hi]))
+            mx = max(m for m, _, _ in parts)
+            num, den = torch.zeros(d), 0.0
+            for m, l, o in parts:
+                if l > 0:
+                    num, den = num + o * torch.exp(m - mx), den + l * torch.exp(m - mx)
+            out[bi, h] = num / den if den > 0 else 0.0
+    want = fa.decode_attention_reference(q, k, v, kv_len)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=2e-5)
+
+
+def test_decode_card_launcher_refuses_cpu_tensors(rng):
+    (_, q), (_, k), (_, v) = _qkv(rng, 1, 2, 1, 64, 128, "bf16",
+                                  q_shape=(1, 2, 128))
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="on the card"):
+        fa.decode_at_split(q, k, v, torch.tensor([5]), fa.DECODE_SPLIT)
+    with pytest.raises(ValueError, match="K6 takes"):
+        fa.decode_split_plan(64, 64)
+    assert sum(_build.LAUNCHES.values()) == 0

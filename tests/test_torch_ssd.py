@@ -2,8 +2,8 @@
 
 On a CPU tensor the port's ``kernels.ops.ssd`` and ``kernels.ssd.ssd``
 run the kernel's plain version (the port of ``repro.models.ssm.
-ssd_chunked``, chunked by 64 with a ragged last chunk).  These tests hold
-it against the JAX Pallas kernel run as the JAX tests run it
+ssd_chunked``, chunked by ``ssd.CHUNK`` with a ragged last chunk).  These
+tests hold it against the JAX Pallas kernel run as the JAX tests run it
 (``interpret=True``, the shapes of ``tests/test_kernels_ssd.py``), against
 the JAX sequential oracle ``ref.ssd`` for ragged lengths and for a slow
 decay, whose state spans many chunks, and hold its final state against
@@ -174,3 +174,99 @@ def test_card_operand_checks():
         ok(b=torch.zeros(1, 128, 8, dtype=torch.bfloat16).transpose(1, 2))
     with pytest.raises(ValueError, match="P = 64"):
         ok(x=torch.zeros(1, 8, 4, 32, dtype=torch.bfloat16))
+
+
+def _staged(x, dt, a, b, c, chunk):
+    """K7's four stages written out in torch (f64, natural-log decays), in
+    the kernel's scratch layouts (``ssd.scratch_shapes``): (a) C Bᵀ once per
+    chunk, (b) the cumsum of dt * A and each chunk's own state, (c) the
+    state pass in chunk order, overwriting each chunk's state with the one
+    entering it, (d) the chunks' outputs.  Returns (y, final state)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    shapes = ssd.scratch_shapes(bsz, s, h, chunk, n=n, p=p)
+    nc = shapes["states"][2]
+    pad = nc * chunk - s
+    xf = torch.nn.functional.pad(x.double(), (0, 0, 0, 0, 0, pad))
+    dtf = torch.nn.functional.pad(dt.double(), (0, 0, 0, pad))
+    bf = torch.nn.functional.pad(b.double(), (0, 0, 0, pad))
+    cf = torch.nn.functional.pad(c.double(), (0, 0, 0, pad))
+    tri = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    states = torch.empty(shapes["states"], dtype=torch.float64)
+    cums = torch.empty(shapes["cums"], dtype=torch.float64)
+    cb = torch.empty((bsz, nc, chunk, chunk), dtype=torch.float64)
+    for ci in range(nc):                                  # (a) per (b, chunk)
+        rows = slice(ci * chunk, (ci + 1) * chunk)
+        cb[:, ci] = cf[:, rows] @ bf[:, rows].transpose(1, 2)
+    for ci in range(nc):                        # (b) per (b, chunk, head)
+        rows = slice(ci * chunk, (ci + 1) * chunk)
+        for hh in range(h):
+            cum = (dtf[:, rows, hh] * float(a[hh])).cumsum(1)     # (B, L)
+            cums[:, hh, rows] = cum
+            w = torch.exp(cum[:, -1:] - cum) * dtf[:, rows, hh]
+            states[:, hh, ci] = bf[:, rows].transpose(1, 2) @ (
+                xf[:, rows, hh] * w[..., None])
+    carry = torch.zeros((bsz, h, n, p), dtype=torch.float64)
+    for ci in range(nc):                                  # (c) in chunk order
+        local = states[:, :, ci].clone()
+        states[:, :, ci] = carry
+        carry = (torch.exp(cums[:, :, (ci + 1) * chunk - 1])[..., None, None]
+                 * carry + local)
+    y = torch.empty((bsz, nc * chunk, h, p), dtype=torch.float64)
+    for ci in range(nc):                  # (d) per (b, chunk, head)
+        rows = slice(ci * chunk, (ci + 1) * chunk)
+        for hh in range(h):
+            cum = cums[:, hh, rows]
+            seg = (cum[:, :, None] - cum[:, None, :]).masked_fill(~tri,
+                                                                  -np.inf)
+            dtx = xf[:, rows, hh] * dtf[:, rows, hh, None]
+            y[:, rows, hh] = ((cb[:, ci] * torch.exp(seg)) @ dtx
+                              + torch.exp(cum)[..., None]
+                              * (cf[:, rows] @ states[:, hh, ci]))
+    return y[:, :s].float(), carry.float()
+
+
+def _pallas_chunk(s):
+    """The largest chunk up to 128 that divides S (the Pallas kernel asks
+    S % chunk == 0)."""
+    return max(d for d in range(1, min(s, 128) + 1) if s % d == 0)
+
+
+@pytest.mark.parametrize("s,slow", [
+    (ssd.CHUNK + 44, False),          # ragged: a full chunk and a part
+    (ssd.CHUNK // 2, False),          # S < L: one ragged chunk
+    (1, False),
+    (4 * ssd.CHUNK + 64, True),       # a slow decay across all 5 chunks
+])
+def test_staged_form_matches_jax(rng, s, slow):
+    """The kernel's decomposition, stage by stage, at its chunk, against
+    ``ssd_chunked`` (y and the final state) and the Pallas kernel in
+    interpret mode (y): the only check of the state pass's order that runs
+    without a card."""
+    arrays = _inputs(rng, 1, s, 2, 16, 32, slow=slow)
+    j, t = _both(arrays)
+    got_y, got_state = _staged(*t, ssd.CHUNK)
+    want_y, want_state = ssd_chunked(*j, chunk=ssd.CHUNK)
+    _close(got_y, want_y)
+    _close(got_state, want_state)
+    _close(got_y, jops.ssd(*j, chunk=_pallas_chunk(s), interpret=True))
+    if slow:      # a pass that dropped the carry would fail here
+        _far(_no_carry(t)[1], want_state)
+
+
+def test_scratch_shapes_follow_the_chunk():
+    shapes = ssd.scratch_shapes(2, 1918, 80, 256)
+    assert shapes == {"states": (2, 80, 8, 128, 64), "cums": (2, 80, 2048),
+                      "cb": (2, 8, 136, 256), "cfrag": (2, 8, 16, 1024)}
+    assert ssd.scratch_shapes(1, 64, 3, 64, n=16, p=8)["states"] == (
+        1, 3, 1, 16, 8)
+    with pytest.raises(ValueError, match="builds for"):
+        ssd.source(96)
+
+
+def test_card_launcher_refuses_cpu_tensors(rng):
+    _, t = _both(_inputs(rng, 1, 10, 2, 64, 128))
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="on the card"):
+        ssd.scan(*t)
+    assert sum(_build.LAUNCHES.values()) == 0
