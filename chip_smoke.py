@@ -31,12 +31,18 @@ result line:
    at the edges of its 128-query and 64-key tiles: causal S = 1, 127, 129,
    1918 (also as the model's transposed (B, S, H, D) views) and 4096, S =
    2048 with window 2048 (the RG-LRU prefill's), GQA 1 (Hq = Hkv = 16,
-   S = 333)) and
+   S = 333); at head dim 256, recurrentgemma-9b's (1, 16, 1, S, 256)
+   through the model's transposed views, window 2048, S = 1, 127, 129,
+   2047, 2049 and 3000) and
    K6 (``decode_attention``, bf16, 8 rows of a (8, 4096, 2, 128) cache read
    through its strides: ragged kv_len with 4096 and one above 4096, short
    ones from 1, and at the edges of its key split: lengths on and beside a
    split boundary, kv_len = 1 beside full rows, kv_len far above S,
-   kv_len = 0 among live rows) and K7 (``kernels.ssd.ssd``, H 80, P 64,
+   kv_len = 0 among live rows; at head dim 256, 8 rows of a (8, 2048, 1,
+   256) ring with the newest key written at len % 2048, n_valid =
+   min(len + 1, 2048) from 1 to 2048 with wrapped writes, and 256 keys a
+   block refused by the card for its shared memory) and K7
+   (``kernels.ssd.ssd``, H 80, P 64,
    N 128, x, B and C bf16, dt and A f32: B 1 S 1920 and B 1 S 1999
    (ragged) with the model's decay, A from -1 to -16, x, B and C read as
    views of one tensor as the model hands them over; B 2 S 1000 with a slow
@@ -50,15 +56,19 @@ result line:
    warp pass.  K7's rows whose plain maximum is below 1e-6 of the
    output's are skipped and counted; the slow-decay cases must also tell
    the final state apart from one that dropped the carry.  K6 with
-   kv_len = 0 gives zeros, and K6 and K7 give the same bytes on two calls
-   with the same inputs.
+   kv_len = 0 gives zeros, and K6, K7 and K5 and K6 at head dim 256 give
+   the same bytes on two calls with the same inputs.
 4. Main paths, each with the launch counts set to 0 just before it and
    read just after:
    a. the campaign: ``repro_torch.launch.scientist.run_campaign`` for 2
-      generations with the ScriptedLLM, one worker, timed on the 18
-      challenge shapes at full size (K1); each blocked genome's path and
-      its µs per shape, and the library each of its 18 shapes loaded
-      (``sg_blocked_path``), which must be the one its rule gives;
+      generations with the ScriptedLLM, through one subprocess worker
+      (``transport="subprocess"``), timed on the 18 challenge shapes at
+      full size (K1, counted in the worker and reported with each
+      verdict); the worker's spawns and the verdicts; each blocked
+      genome's path and its µs per shape, and the library each of its 18
+      shapes loaded (``sg_blocked_path``), which must be the one its rule
+      gives and the one the worker built; then the verdict latency of
+      three of its sources through a fresh worker and in this process;
    b. the platform's compile-error path: the single-block seed passes the
       256^3 correctness check and is refused at the first challenge shape
       (K2), the Hopper form of the TPU's VMEM refusal;
@@ -92,7 +102,24 @@ result line:
       layer 0's state may differ by one bf16 step of its max and layer
       1's by four (the deeper layers' and the batch-1 tokens' shortfall
       are printed);
-   g. mamba2-2.7b on the card against the CPU, as in e.
+   g. mamba2-2.7b on the card against the CPU, as in e;
+   h. fault containment: a subprocess pool without a cache gets a good
+      genome, a submitted kernel that writes 2^40 bytes past its output,
+      the good genome again and a second one: the bad one must come back
+      ``runtime_error``, its worker must exit and come back as
+      incarnation 1, the others must be ``ok`` and this process's CUDA
+      context must still work.  Then, in a child process (``chip_smoke.py
+      --inprocess-fault-check``), one in-process ``EvaluationService``
+      gets the bad source and a good one: the second must raise
+      ``PoisonedContextError``;
+   i. serving recurrentgemma-9b as in d (38 layers, d 4096, 16 heads of
+      256 on one KV head, 12 local-attention layers with window 2048),
+      with two more requests of about 3,000 tokens, past the window (K5's
+      window mask, the ring's roll, K6 over a wrapped ring); K5 must
+      launch 12 times per prompt and K6 12 times per tick; requests 0 and
+      17 (a long one) are replayed alone as in d, and traced as in d;
+   j. recurrentgemma-9b on the card against the CPU as in e, with one
+      recurrent and one attention layer.
 5. Times: each kernel and its plain version at one main-path shape, with
    CUDA events, beside the least time the card could take and one library
    call computing the same function: the library seed (f32 dequant +
@@ -109,7 +136,9 @@ result line:
    in turn, as a decode tick reads the cache; also at each key split it
    takes; K6 must be faster than SDPA on the card); K7 at the longest
    prompt of 4f, for which no library call exists, with each stage kernel's
-   device time, and at each chunk L it builds for.  K5, K6 and SDPA are
+   device time, and at each chunk L it builds for; K5 at head dim 256 at
+   4i's longest prompt (SDPA given the window as a mask) and K6 at head
+   dim 256 at 4i's rings and final lengths.  K5, K6 and SDPA are
    timed over 100 calls.  K5, K6, SDPA and K7 also get their device time
    per call from torch.profiler (``device_ms``): the event time of a short
    kernel includes the host's launch overhead.
@@ -121,6 +150,7 @@ import copy
 import ctypes
 import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -145,11 +175,51 @@ REPLACES = {
     "K6": "src/repro/kernels/flash_attention.py:232",
     "K7": "src/repro/kernels/ssd.py:77",
 }
+# the head-dim-256 instantiations of K5 and K6 (recurrentgemma-9b)
+REPLACES["K5-D256"], REPLACES["K6-D256"] = REPLACES["K5"], REPLACES["K6"]
 COUNTER = {"K1a": "blocked_splitk", "K1b": "blocked", "K2": "monolith",
            "K3": "scaled_gemm", "K4": "naive_scaled_gemm",
-           "K5": "flash_attention", "K6": "decode_attention", "K7": "ssd"}
+           "K5": "flash_attention", "K6": "decode_attention", "K7": "ssd",
+           "K5-D256": "flash_attention", "K6-D256": "decode_attention"}
+INPROCESS_CHECK = "--inprocess-fault-check"
 SERVE = dict(slots=8, max_seq=4096, requests=16, max_new=32,
              prompt_lens=(100, 2000))
+# 4i's traffic beyond SERVE's: prompts past recurrentgemma-9b's 2048-token
+# window, the only ones that wrap its ring
+LONG_PROMPTS = ((2900, 3100), (2900, 3100))
+# 4h: the shapes a fault-containment submission is timed on
+FAULT_CONFIGS = 3
+
+# A submission as the LLM writer could send it: its CUDA kernel writes 2^40
+# bytes past its output, far outside any allocation, so the card reports an
+# illegal address on every run, and the CUDA context of the process that
+# launched it is unusable from then on.
+OOB_KERNEL = '''"""A kernel that writes 2^40 bytes past its output."""
+import torch
+
+from repro_torch.kernels import _build
+
+GENOME = None
+CUDA_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void oob_kernel(float* out) { out[(1ull << 40) / sizeof(float)] = 1.f; }
+extern "C" int oob(void* out, void* stream) {
+  oob_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((float*)out);
+  return (int)cudaGetLastError();
+}
+extern "C" const char* sg_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+"""
+
+
+def run(a, b, a_scale, b_scale):
+    out = torch.zeros(a.shape[0], b.shape[1], dtype=torch.bfloat16,
+                      device=a.device)
+    _build.launch("oob", _build.compile_source(CUDA_SOURCE), "oob",
+                  [out.data_ptr()], [], a.device)
+    return out
+'''
 
 
 def fail(msg: str) -> None:
@@ -170,7 +240,8 @@ def main() -> int:
     from repro_torch.core import codegen
     from repro_torch.core.genome import (SEED_LIBRARY, SEED_MONOLITH,
                                          SEED_MXU, SEED_NAIVE)
-    from repro_torch.core.evaluator import EvaluationService
+    from repro_torch.core import NO_WAIT_POLICY, EvalPool, EventLog
+    from repro_torch.core.evaluator import EvaluationService, probe_context
     from repro_torch.core.population import BENCH_CONFIGS_18
     import numpy as np
     from repro_torch import configs
@@ -179,7 +250,7 @@ def main() -> int:
     from repro_torch.kernels import scaled_gemm as sg
     from repro_torch.kernels import ssd
     from repro_torch.launch.scientist import report, run_campaign
-    from repro_torch.models import api
+    from repro_torch.models import api, rglru
     from repro_torch.serve import Engine, Request
 
     dev = torch.device("cuda")
@@ -454,6 +525,41 @@ def main() -> int:
         attn_cases.append(("K6", f"B=8 Smax=4096 {what}", fa.decode_attention,
                            fa.decode_attention_reference,
                            cache_inputs(lens, 6)))
+    # K5 and K6 at head dim 256 (recurrentgemma-9b: 16 query heads on one
+    # KV head).  K5 at the edges of its 64-query and 64-key tiles and of
+    # the 2048-token window, read through the model's transposed views.
+    for s_len in (1, 127, 129, 2047, 2049, 3000):
+        attn_cases.append((
+            "K5-D256", f"S={s_len} window=2048 group 16, views",
+            lambda q, k, v: fa.flash_attention(q, k, v, window=2048),
+            lambda q, k, v: fa.attention_reference(q, k, v, window=2048),
+            attn_inputs(1, 16, 1, s_len, 256, s_len + 7, views=True)))
+
+    def ring_inputs(lens, seed, window=2048):
+        """q (B, 16, 256) and a (B, W, 1, 256) ring as the rglru engine
+        keeps it, the key and value of position len written at slot
+        len % W as its decode writes them; K6 gets the ring's transposed
+        views and n_valid = min(len + 1, W), as the model hands them."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        b = len(lens)
+        ck, cv = (torch.randn(b, window, 1, 256, generator=g, device=dev)
+                  .to(bf16) for _ in range(2))
+        q = torch.randn(b, 16, 256, generator=g, device=dev).to(bf16)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        rows, slot = torch.arange(b, device=dev), kv_len % window
+        for c in (ck, cv):
+            c[rows, slot] = 4 * torch.randn(b, 1, 256, generator=g,
+                                            device=dev).to(bf16)
+        return (q, ck.transpose(1, 2), cv.transpose(1, 2),
+                torch.clamp(kv_len + 1, max=window))
+
+    for what, lens in (
+            ("n_valid 1", [0] * 8),
+            ("n_valid 1 to 2048, wrapped writes",
+             [0, 2047, 2048 + 37, 9000, 1, 100, 4095, 2048])):
+        attn_cases.append(("K6-D256", f"B=8 ring of 2048 {what}",
+                           fa.decode_attention, fa.decode_attention_reference,
+                           ring_inputs(lens, 8)))
     for name, what, kernel, plain, args in attn_cases:
         before = sum(_build.LAUNCHES.values())
         got = kernel(*args)
@@ -472,12 +578,30 @@ def main() -> int:
         fail("K6 with kv_len = 0 did not give zeros")
     # two calls on the same inputs give the same bytes (no reduction order
     # set by which block finishes first)
-    args = attn_cases[-4][4]
-    first, second = fa.decode_attention(*args), fa.decode_attention(*args)
-    torch.cuda.synchronize()
-    if not torch.equal(first.view(torch.int16), second.view(torch.int16)):
-        fail("K6: two calls on the same inputs differ")
-    print("K6: kv_len = 0 gives zeros; two calls give the same bytes")
+    for name, what, kernel, plain, args in attn_cases:
+        if what not in ("B=8 Smax=4096 kv_len on split boundaries",
+                        "S=3000 window=2048 group 16, views",
+                        "B=8 ring of 2048 n_valid 1 to 2048, wrapped writes"):
+            continue
+        first, second = kernel(*args), kernel(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(first.view(torch.int16), second.view(torch.int16)):
+            fail(f"{name} {what}: two calls on the same inputs differ")
+    print("K6: kv_len = 0 gives zeros; K6, K5-D256 and K6-D256: two calls "
+          "give the same bytes")
+    # at head dim 256 a block of 256 keys would need more shared memory
+    # than a block may have: the card refuses it, and K6 splits by 128
+    q, k, v, lens = ring_inputs([5, 2047], 9)
+    try:
+        fa.decode_at_split(q, k, v, lens, 256)
+        torch.cuda.synchronize()
+        fail("K6 at D=256 with 256 keys a block was not refused")
+    except _build.LaunchRefusedError as e:
+        print(f"K6 at D=256, 256 keys a block "
+              f"({fa.decode_smem_bytes(256, 256)} bytes of shared memory) "
+              f"refused as expected: {e}; it runs at "
+              f"{fa.decode_split(256)} keys a block "
+              f"({fa.decode_smem_bytes(256, fa.decode_split(256))} bytes)")
 
     def ssd_row_err(got, want, what):
         """Worst row of an SSD output (y: one batch, token and head; the
@@ -570,16 +694,29 @@ def main() -> int:
                                   for n, e in worst.items()))
 
     # ------------------------------------------------------ 4a. campaign
-    libraries_before = len(sg._LIBRARIES)
+    # through one subprocess worker, as the launcher runs it: the kernels
+    # launch in the worker, whose counts come back with each verdict
+    # (``SubprocessTransport.launches``); this process launches none
+    so_before = set(_build.BUILD_DIR.glob("*.so"))
     _build.reset_launches()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as wd:
-        sci = run_campaign(2, wd, seed=0, workers=1)
+        sci = run_campaign(2, wd, seed=0, workers=1, transport="subprocess",
+                           job_timeout_s=600)
         sci.pool.close()
     events = sci.events.records
-    campaign_launches = dict(_build.LAUNCHES)
-    print(f"campaign: {time.perf_counter() - t0:.1f} s, launches "
-          f"{campaign_launches}")
+    campaign_launches = dict(sci.pool.transport.launches)
+    print(f"campaign: {time.perf_counter() - t0:.1f} s through "
+          f"{sci.pool.stats()['transport']} workers; launches reported by "
+          f"the worker {campaign_launches}, by this process "
+          f"{dict(_build.LAUNCHES)}")
+    print("campaign: worker spawns (incarnation, pid) " + str(
+        [(e["incarnation"], e["pid"]) for e in events
+         if e.get("event") == "worker_spawn"]) + "; verdicts " + " ".join(
+        f"{e['rid']}:{e['status']}" for e in events
+        if e.get("event") == "eval_result"))
+    if sci.pool.stats()["transport"] != "subprocess" or _build.LAUNCHES:
+        fail("the campaign did not run its kernels in a subprocess worker")
     for line in report(sci):
         print("  " + line)
     recs = list(sci.population)
@@ -619,9 +756,9 @@ def main() -> int:
         print(f"us per shape, {label} {r.rid}: " + " ".join(
             f"{key}={t:.1f}" for key, t in r.timings_us.items()))
     # Each blocked genome's path by its rule, and the path of the library
-    # that each of its 18 shapes loaded: asking load_library again for the
-    # same #defines and text must find the library the campaign built.
-    libraries_built = len(sg._LIBRARIES)
+    # that each of its 18 shapes loaded: loading the same #defines and text
+    # here must find on disk the library the worker built, and build none.
+    on_disk = set(_build.BUILD_DIR.glob("*.so"))
     for r in recs:
         if r.genome is None or r.genome.style != "blocked":
             continue
@@ -638,14 +775,33 @@ def main() -> int:
         if r.status == "ok" and took != {rule}:
             fail(f"{r.rid}: its rule gives the {rule} path, its libraries "
                  f"hold {sorted(took)}")
-    if len(sg._LIBRARIES) != libraries_built:
-        fail("a blocked genome's library was not the one the campaign built")
-    print(f"campaign built {libraries_built - libraries_before} blocked "
-          "libraries")
+    if set(_build.BUILD_DIR.glob("*.so")) != on_disk:
+        fail("a blocked genome's library was not the one the worker built")
+    print(f"campaign: the worker built {len(on_disk - so_before)} libraries")
     if seeds["mxu"].genome.kernel_path() != "wgmma":
         fail("the MXU seed is not on the wgmma path")
     path_launches = {n: campaign_launches.get(COUNTER[n], 0)
                      for n in ("K1a", "K1b")}
+
+    # verdict latency: three of the campaign's sources, their libraries on
+    # disk, through a fresh subprocess worker and in this process; the
+    # worker's first verdict includes its start (torch import, CUDA
+    # context, the problem tensors)
+    latency = {}
+    for transport in ("subprocess", "inprocess"):
+        pool = EvalPool.of(EvaluationService(seed=0), transport=transport,
+                           retry_policy=NO_WAIT_POLICY)
+        latency[transport] = []
+        for r in (lib, seeds["mxu"], best):
+            t0 = time.perf_counter()
+            res = pool.submit_async(r.source).result(timeout=600)
+            latency[transport].append(time.perf_counter() - t0)
+            if res.status != "ok":
+                fail(f"{transport}: {r.rid} came back {res.status}")
+        pool.close()
+    print("verdict latency, s per submission (library seed, MXU seed, "
+          "best): " + "; ".join(f"{t} " + " ".join(f"{x:.2f}" for x in ts)
+                                for t, ts in latency.items()))
 
     # ------------------------------------- 4b. platform compile-error path
     _build.reset_launches()
@@ -681,9 +837,10 @@ def main() -> int:
             fail(f"{name} was not launched on its path")
 
     # ------------------------------------------------ 4d-4g. serving, helpers
-    def serve(cfg, label):
+    def serve(cfg, label, long_prompts=()):
         """Serve SERVE's workload on ``cfg`` at full width with random bf16
-        weights from seed 0; print what it took.  The launch counts are set
+        weights from seed 0, plus one prompt a (lo, hi) length range of
+        ``long_prompts``; print what it took.  The launch counts are set
         to 0 just before ``engine.run`` and read just after."""
         t0 = time.perf_counter()
         model = api.init_params(cfg, 0)
@@ -693,8 +850,9 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s")
         rng = np.random.default_rng(0)
         lo, hi = SERVE["prompt_lens"]
-        prompts = [rng.integers(0, cfg.vocab, int(rng.integers(lo, hi + 1)))
-                   .astype(np.int32) for _ in range(SERVE["requests"])]
+        ranges = [(lo, hi)] * SERVE["requests"] + list(long_prompts)
+        prompts = [rng.integers(0, cfg.vocab, int(rng.integers(a, b + 1)))
+                   .astype(np.int32) for a, b in ranges]
         engine = Engine(cfg, model, slots=SERVE["slots"],
                         max_seq=SERVE["max_seq"])
         for i, prompt in enumerate(prompts):
@@ -724,7 +882,7 @@ def main() -> int:
         print(f"serve {label}: card memory in use "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        if len(finished) != SERVE["requests"] or any(
+        if len(finished) != len(prompts) or any(
                 len(r.generated) != SERVE["max_new"]
                 or not all(0 <= t < cfg.vocab_padded for t in r.generated)
                 for r in finished):
@@ -753,12 +911,13 @@ def main() -> int:
     def shortfall(logits, tok):
         return ((logits.max() - logits[tok]) / logits.abs().max()).item()
 
-    def replayed(finished):
+    def replayed(finished, ids=(0, SERVE["requests"] - 1)):
         by_id = {r.rid: r for r in finished}
-        return [by_id[0], by_id[SERVE["requests"] - 1]]
+        return [by_id[i] for i in ids]
 
-    def witness(model, cfg, label, finished, rows):
-        for req in replayed(finished):
+    def witness(model, cfg, label, finished, rows,
+                ids=(0, SERVE["requests"] - 1)):
+        for req in replayed(finished, ids):
             gaps, exact = [], 0
             for (logits, _), tok in zip(replay(model, cfg, req, rows),
                                         req.generated):
@@ -858,8 +1017,8 @@ def main() -> int:
     # hidden value may differ by a bf16 step (2^-8 relative) per rounding;
     # two layers compound a few such steps, well inside the kernels' own
     # 0.02 * max|plain|.
-    def card_vs_cpu(cfg, label):
-        small = dataclasses.replace(cfg, n_layers=2)
+    def card_vs_cpu(cfg, label, small=None):
+        small = small or dataclasses.replace(cfg, n_layers=2)
         card_model = api.init_params(small, 1)
         cpu_model = copy.deepcopy(card_model).to("cpu")
         prompt = torch.from_numpy(np.random.default_rng(1).integers(
@@ -884,7 +1043,9 @@ def main() -> int:
             errs.append(rel_err(sides["card"][-1], sides["cpu"][-1]))
         agree = sum(int(a.argmax() == b.argmax())
                     for a, b in zip(sides["card"], sides["cpu"]))
-        print(f"card vs cpu, {label} full width 2 layers, 333-token prompt: "
+        print(f"card vs cpu, {label} full width 2 layers "
+              f"({'+'.join(small.rglru.pattern) if small.rglru else small.family}), "
+              "333-token prompt: "
               f"max|card - cpu| / max|cpu| of the logits, prefill then 4 "
               f"decode steps: {' '.join(f'{e:.2e}' for e in errs)}; argmax "
               f"agrees {agree}/5; launches {dict(_build.LAUNCHES)}; "
@@ -939,6 +1100,104 @@ def main() -> int:
 
     # ------------------------------------------- 4g. card against the CPU
     card_vs_cpu(mamba, "mamba2-2.7b")
+
+    # ---------------------------------------------- 4h. fault containment
+    # A subprocess pool, no eval cache: a good genome, a kernel that writes
+    # far outside any allocation, the good genome again and a second one.
+    # The bad source must get runtime_error, its worker must leave and come
+    # back as incarnation 1, the later genomes must be ok, and this
+    # process's own CUDA context must still work.
+    fault_events = EventLog()
+    pool = EvalPool.of(
+        EvaluationService(bench_configs=BENCH_CONFIGS_18[:FAULT_CONFIGS]),
+        transport="subprocess", retry_policy=NO_WAIT_POLICY,
+        events=fault_events, transport_options={"job_timeout_s": 300})
+    good = codegen.render_source(SEED_MXU)
+    submissions = (("good genome", good), ("out-of-bounds kernel", OOB_KERNEL),
+                   ("good genome again", good),
+                   ("second good genome",
+                    codegen.render_source(SEED_MXU.replace(block_m=64))))
+    statuses = []
+    for what, src in submissions:
+        t0 = time.perf_counter()
+        res = pool.submit_async(src).result(timeout=600)
+        statuses.append(res.status)
+        print(f"4h {what}: {res.status} in {time.perf_counter() - t0:.1f} s"
+              + (f" ({res.error[:200]})" if res.error else ""))
+    spawns = [(e["incarnation"], e["pid"])
+              for e in fault_events.select("worker_spawn")]
+    exits = fault_events.select("worker_exit")
+    fault_launches = dict(pool.transport.launches)
+    pool.close()
+    print(f"4h: spawns (incarnation, pid) {spawns}; exits "
+          f"{[(e['incarnation'], e['reason'][:120]) for e in exits]}; "
+          f"launches reported {fault_launches}")
+    if statuses != ["ok", "runtime_error", "ok", "ok"]:
+        fail(f"fault containment: verdicts {statuses}, expected ok, "
+             "runtime_error, ok, ok")
+    if [i for i, _ in spawns] != [0, 1] or not exits or \
+            "CUDA context unusable" not in exits[0]["reason"]:
+        fail("fault containment: the worker did not leave after the fault "
+             "and come back as incarnation 1")
+    lost = probe_context(dev)
+    x = torch.ones(64, 64, device=dev)
+    if lost or (x @ x).sum().item() != 64.0 ** 3:
+        fail(f"fault containment: this process's CUDA context broke: {lost}")
+    print("4h: the bad kernel's worker exited and came back as incarnation "
+          "1; this process's CUDA context still works")
+    # the same two sources in one process, in a child of this one: the
+    # service must refuse to go on after the fault
+    child = subprocess.run(
+        [sys.executable, str(root / "chip_smoke.py"), INPROCESS_CHECK],
+        capture_output=True, text=True, timeout=600)
+    out = (child.stdout.strip().splitlines() or [""])[-1]
+    print(f"4h in-process, in a child process (exit {child.returncode}): "
+          f"{out}")
+    try:
+        verdict = json.loads(out)
+    except ValueError:
+        fail(f"in-process fault check printed no result: "
+             f"{child.stderr[-2000:]}")
+    if verdict.get("bad") != "runtime_error" or \
+            verdict.get("next") != "PoisonedContextError" or \
+            "subprocess" not in verdict.get("message", ""):
+        fail("in-process: the service went on after a poisoned context")
+
+    # --------------------------------------- 4i. serving recurrentgemma-9b
+    rg = configs.get_config("recurrentgemma-9b")
+    n_attn = rglru.kinds(rg).count("attn")
+    model, engine, rg_prompts, finished, serve_launches, ticks = serve(
+        rg, "recurrentgemma-9b", LONG_PROMPTS)
+    path_launches["K5-D256"] = serve_launches.get(COUNTER["K5-D256"], 0)
+    path_launches["K6-D256"] = serve_launches.get(COUNTER["K6-D256"], 0)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"recurrentgemma-9b: {n_params / 1e9:.2f} B parameters in the "
+          f"model; {n_attn} attention "
+          f"layers, window {rg.rglru.window}; "
+          f"{sum(len(p) > rg.rglru.window for p in rg_prompts)} prompts "
+          "past the window")
+    if path_launches["K5-D256"] != n_attn * len(rg_prompts):
+        fail(f"K5 (D=256) launched {path_launches['K5-D256']} times, "
+             f"expected {n_attn} x {len(rg_prompts)}")
+    if path_launches["K6-D256"] != n_attn * ticks:
+        fail(f"K6 (D=256) launched {path_launches['K6-D256']} times, "
+             f"expected {n_attn} x {ticks} ticks")
+    rg_longest = max(map(len, rg_prompts))
+    rg_lens = engine.cache["len"].tolist()
+    rg_k = engine.cache["k"].clone()       # (n_attn, B, W, 1, 256) rings
+    rg_v = engine.cache["v"].clone()
+    witness(model, rg, "recurrentgemma-9b", finished, rows=1,
+            ids=(0, len(rg_prompts) - 1))
+    trace_serving(model, rg, "recurrentgemma-9b", engine, rg_prompts,
+                  "flash_prefill_kernel")
+    del engine, model, finished
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- 4j. card against the CPU
+    # one recurrent layer and one attention layer at full width
+    card_vs_cpu(rg, "recurrentgemma-9b", dataclasses.replace(
+        rg, n_layers=2, rglru=dataclasses.replace(
+            rg.rglru, pattern=("rglru", "attn"))))
 
     # ------------------------------------------------------------ 5. times
     def time_ms(fn, args, reps):
@@ -1155,6 +1414,49 @@ def main() -> int:
     if not records[-1]["device_ms"] < records[-1]["library_device_ms"]:
         fail("K6 is not faster than SDPA on the card")
 
+    # K5 at head dim 256 at the longest prompt of 4i, window 2048 and GQA
+    # group 16, through the model's transposed views; SDPA gets the window
+    # as a mask.  K6 at head dim 256 at 4i's rings and final lengths, one
+    # launch per attention layer in turn.  Their bounds count the (query,
+    # key) pairs and the ring slots this run's lengths make valid.
+    window = rg.rglru.window
+    q, k, v = attn_inputs(1, 16, 1, rg_longest, 256, 6, views=True)
+    pos = torch.arange(rg_longest, device=dev)
+    win_mask = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window))
+    pairs = sum(min(t + 1, window) for t in range(rg_longest))
+    records.append(attn_record("K5-D256", dict(
+        sets=[(q, k, v)],
+        kernel=lambda q, k, v: fa.flash_attention(q, k, v, window=window),
+        plain=lambda q, k, v: fa.attention_reference(q, k, v, window=window),
+        library=lambda q, k, v: sdpa(q, k, v, attn_mask=win_mask,
+                                     enable_gqa=True),
+        ops=4 * 16 * 256 * pairs, nbytes=(2 * 16 + 2) * rg_longest * 256 * 2,
+        shape=f"B,Hq,Hkv,S,D=1,16,1,{rg_longest},256 causal window "
+              f"{window}")))
+    w_ring = rg_k.shape[2]
+    n_valid = [min(n, w_ring) for n in rg_lens]
+    q6 = torch.randn(SERVE["slots"], 16, 256, generator=g,
+                     device=dev).to(bf16)
+    nv6 = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+    ring_sets = [(q6, rg_k[i].transpose(1, 2), rg_v[i].transpose(1, 2), nv6)
+                 for i in range(n_attn)]
+    ring_valid = (torch.arange(w_ring, device=dev)[None, :]
+                  < nv6[:, None])[:, None, None, :]
+    records.append(attn_record("K6-D256", dict(
+        sets=ring_sets, kernel=fa.decode_attention,
+        plain=fa.decode_attention_reference,
+        library=lambda q, k, v, n: sdpa(q[:, :, None], k, v,
+                                        attn_mask=ring_valid,
+                                        enable_gqa=True)[:, :, 0],
+        ops=4 * 16 * 256 * sum(n_valid),
+        nbytes=(sum(n_valid) * 256 * 2 * 2 + 2 * SERVE["slots"] * 16 * 256 * 2
+                + 4 * SERVE["slots"]),
+        shape=f"B,Hq,Hkv,W,D=8,16,1,{w_ring},256 ring, n_valid={n_valid}")))
+    records[-1]["split"] = fa.decode_split(256)
+    print(f"K6-D256 runs {fa.decode_split(256)} keys a block; 256 keys a "
+          "block is refused (phase 3)")
+
     # K7 at the longest prompt of 4f, x, B and C read as views of one
     # (1, S, H*P + 2N) tensor, as the model hands them over.  No PyTorch
     # call computes the SSD scan, so there is no library time.  Its bound
@@ -1222,5 +1524,35 @@ def main() -> int:
     return 0
 
 
+def inprocess_fault_check() -> int:
+    """4h's in-process half, run by chip_smoke.py in a child process (its
+    CUDA context ends unusable): the out-of-bounds kernel and then a good
+    genome through one ``EvaluationService`` in this process.  Prints one
+    JSON line: the bad source's verdict, and what the next submission
+    gave or raised."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+    from repro_torch.core import codegen
+    from repro_torch.core.evaluator import (EvaluationService,
+                                            PoisonedContextError)
+    from repro_torch.core.genome import SEED_MXU
+    from repro_torch.core.population import BENCH_CONFIGS_18
+    svc = EvaluationService(bench_configs=BENCH_CONFIGS_18[:FAULT_CONFIGS])
+    out = {"bad": svc.submit(OOB_KERNEL).status,
+           "context_lost": svc.context_lost}
+    try:
+        out["next"] = svc.submit(codegen.render_source(SEED_MXU)).status
+    except PoisonedContextError as e:
+        out["next"], out["message"] = type(e).__name__, str(e)
+    print(json.dumps(out), flush=True)
+    # no teardown in a poisoned context
+    os._exit(0)
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == [INPROCESS_CHECK]:
+        sys.exit(inprocess_fault_check())
     sys.exit(main())

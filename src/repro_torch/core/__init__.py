@@ -2,9 +2,9 @@
 loop (Selector -> Designer -> 3x Writer -> pooled black-box Evaluation)
 optimizing one complex accelerator kernel.
 
-Port of ``repro.core``.  Not ported in this slice: the analytic TPU-v5e
-cost model (``estimate_us``; every verdict here is a time measured on the
-card), the subprocess transport and its eval worker, and the autotuner.
+Port of ``repro.core``.  Not ported: the analytic TPU-v5e cost model
+(``estimate_us``; every verdict here is a time measured on the card) and
+the autotuner.
 
 ``__all__`` is the supported public surface, as in ``repro.core``.
 """
@@ -12,7 +12,7 @@ from .evalpool import (
     PRIORITY_CAMPAIGN, PRIORITY_PROBE, PRIORITY_URGENT,
     EvalBackend, EvalCache, EvalHandle, EvalPool,
 )
-from .evaluator import EvalResult, EvaluationService
+from .evaluator import EvalResult, EvaluationService, PoisonedContextError
 from .events import INTEGRITY_EVENTS, WORKER_LIFECYCLE_EVENTS, EventLog
 from .genome import (
     SEED_LIBRARY, SEED_MONOLITH, SEED_MXU, SEED_NAIVE, KernelGenome,
@@ -31,7 +31,10 @@ from .resilience import (
     TransientError, retry_call,
 )
 from .scientist import GenerationLog, KernelScientist
-from .transport import InProcessTransport, WorkerDiedError, WorkerTransport
+from .transport import (
+    InProcessTransport, RemoteEvalError, SubprocessTransport,
+    WorkerDiedError, WorkerTransport,
+)
 
 __all__ = [
     # scientist loop
@@ -40,9 +43,10 @@ __all__ = [
     "EvalBackend", "EvalPool", "EvalCache", "EvalHandle",
     "PRIORITY_URGENT", "PRIORITY_CAMPAIGN", "PRIORITY_PROBE",
     # transports
-    "WorkerTransport", "InProcessTransport", "WorkerDiedError",
+    "WorkerTransport", "InProcessTransport", "SubprocessTransport",
+    "WorkerDiedError", "RemoteEvalError",
     # evaluation platform
-    "EvaluationService", "EvalResult",
+    "EvaluationService", "EvalResult", "PoisonedContextError",
     # resilience
     "RetryPolicy", "retry_call", "DEFAULT_POLICY", "NO_WAIT_POLICY",
     "TransientError", "ServiceBusyError",

@@ -22,6 +22,19 @@ analytic TPU-v5e model (``estimate_us``) is not ported: on the card every
 verdict is a measured time.  The service runs on the card unless it is
 given ``device="cpu"`` (the tests do so, at small configurations); without
 a card and without that request it raises.
+
+On the card a submission ends with ``torch.cuda.synchronize()``, so a
+fault the card reports late lands on the source that caused it.  A kernel
+that faults (an illegal address, a trap) leaves the process's CUDA context
+unusable for every later launch, so after an execution error the service
+launches a trivial op and synchronises (:func:`probe_context`).  If that
+fails, the service keeps the reason in ``context_lost``: the faulting
+source still gets its ``runtime_error`` verdict, but every later
+``submit`` raises :class:`PoisonedContextError` instead of handing out
+false ``runtime_error`` verdicts.  A subprocess worker
+(``core.eval_worker``) reads ``context_lost`` after each verdict and exits;
+in-process, the campaign has to stop, which is why LLM-written kernels go
+through ``transport="subprocess"``.
 """
 from __future__ import annotations
 
@@ -30,6 +43,7 @@ import hashlib
 import math
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -42,6 +56,29 @@ from .resilience import ServiceBusyError
 
 # nvcc refused the source, or the card refused the launch before it ran
 COMPILE_ERRORS = (_build.KernelBuildError, _build.LaunchRefusedError)
+
+
+class PoisonedContextError(RuntimeError):
+    """An earlier submission left this process's CUDA context unusable.
+
+    Not a ``resilience.TransientError``: no retry in this process can
+    succeed.  Evaluate submitted kernels with ``transport="subprocess"``,
+    whose workers exit after such a fault and come back in a fresh
+    process."""
+
+
+def probe_context(device) -> Optional[str]:
+    """Why ``device``'s CUDA context can take no more work, or ``None``:
+    launches a trivial op and synchronises.  ``None`` off the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    try:
+        torch.ones(1, device=device).add_(1)
+        torch.cuda.synchronize(device)
+    except Exception as e:
+        return f"{type(e).__name__}: {e}"
+    return None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -80,6 +117,9 @@ class EvaluationService:
         self.rtol = rtol
         self.latency_s = latency_s   # models the shared queue's service delay
         self.submissions = 0
+        #: why this process's CUDA context is unusable, once a submitted
+        #: kernel has faulted (see :func:`probe_context`)
+        self.context_lost: Optional[str] = None
         self._lock = threading.Lock()
         # per-(config, seed) memo of problem tensors and the reference-oracle
         # output: computed once per service, not per submission
@@ -93,10 +133,19 @@ class EvaluationService:
                 "EvaluationService is sequential-only (paper §3.4): a "
                 "submission is already in flight")
         try:
+            if self.context_lost:
+                raise PoisonedContextError(
+                    f"the CUDA context of {self.device} is unusable after an "
+                    f"earlier submission faulted ({self.context_lost}); no "
+                    "verdict from this process can be trusted: evaluate "
+                    "submitted kernels with transport='subprocess'")
             self.submissions += 1
             if self.latency_s:
                 time.sleep(self.latency_s)
-            return self._evaluate(source)
+            res = self._evaluate(source)
+            if self.device.type == "cuda":
+                res = self._settle(res)
+            return res
         finally:
             self._lock.release()
 
@@ -129,6 +178,18 @@ class EvaluationService:
         self.submissions = d["submissions"]
 
     # ------------------------------------------------------------ internals
+    def _settle(self, res: EvalResult) -> EvalResult:
+        """End a submission on the card: synchronise, so that a late fault
+        is this source's, and after an execution error probe the context."""
+        try:
+            torch.cuda.synchronize(self.device)
+        except Exception as e:
+            res = EvalResult("runtime_error",
+                             f"{type(e).__name__} during execution: {e}")
+        if res.status == "runtime_error":
+            self.context_lost = probe_context(self.device)
+        return res
+
     def _evaluate(self, source: str) -> EvalResult:
         # content address of the submission: benchmark jitter keys on it
         skey = hashlib.sha256(source.encode()).hexdigest()

@@ -62,9 +62,14 @@
 // not lift the cap), and 128-key tiles (64 registers of scores, 32 of P
 // and 64 of O) spilled and serialised the wgmmas, so the tiles are 64
 // keys; a 64-query block with one consumer warpgroup was slower at 1,918
-// tokens and no faster at 245.  Not done yet: no persistent grid, no TMA
-// store, no cluster multicast of K and V to the 8 heads of a group, only
-// D = 128 instantiated.
+// tokens and no faster at 245.  D = 256 (recurrentgemma-9b: 16 query heads
+// on one KV head) takes that 64-query shape all the same: a warpgroup's O
+// is then 128 f32 registers a thread, which fit beside 32 of scores and
+// 16 of P only under the 255-register cap of a 160-thread block, and its
+// 32 KB tiles leave room for a 3-slot ring; P V is two m64n128k16 wgmmas
+// a 16-key step, one per 128-wide half of D.  Not done yet: no persistent
+// grid, no TMA store, no cluster multicast of K and V to the heads of a
+// group; D = 128 and 256 are instantiated, no other.
 
 // --- K6, flash_decode_kernel + flash_decode_merge_kernel ---------------------
 // Replaces repro/kernels/flash_attention.py `_decode_body` +
@@ -74,6 +79,12 @@
 // Bound on an H100: every valid K and V row is read once and each is used
 // for 4*group*D operations, 2*group operations per byte, so the bytes
 // bound it: sum_b min(kv_len[b], S) * Hkv * D * 4 bytes over 3.35 TB/s.
+// At D = 256 a block's K and V tiles double: 256 keys a block would need
+// 264 KB of shared memory, so that head dim splits the keys by 128
+// (`decode_split` in kernels/flash_attention.py; a launch past the limit is
+// refused).  The serving ring of recurrentgemma-9b's local attention is
+// read through its strides like any cache: its slots hold keys out of
+// order, which attention does not see.
 //
 // Design (flash-decoding).  As on the TPU, the GQA group (group <= 16
 // query heads sharing one KV head) forms the rows of the product.  One
@@ -383,12 +394,18 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[16][4],
 
 template <int D>
 struct Prefill {
-  static constexpr int NC = 2;                     // consumer warpgroups
+  // D = 128: two consumer warpgroups and a 4-slot ring.  D = 256: a
+  // warpgroup's O (64 rows x 256) is 128 f32 registers a thread, which
+  // only fits beside its scores under the 255-register cap of a block of
+  // one consumer warpgroup and the producer warp; and a 64-key K or V tile
+  // is 32 KB, so the ring holds 3 slots beside 32 KB of Q (224 KB).
+  static constexpr int NC = D > 128 ? 1 : 2;       // consumer warpgroups
   static constexpr int BK = 64;                    // keys per tile
-  static constexpr int STAGES = 4;                 // slots of the K/V ring
+  static constexpr int STAGES = D > 128 ? 3 : 4;   // slots of the K/V ring
   static constexpr int BQ = 64 * NC;               // queries per block
   static constexpr int THREADS = 128 * NC + 32;    // + the producer warp
   static constexpr int ROW = 128;                  // bytes of a swizzled row
+  static constexpr int NH = D / 128;               // 128-wide parts of O
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;      // one K or V tile
   static constexpr int K_OFF = Q_BYTES;
@@ -396,8 +413,9 @@ struct Prefill {
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
   // q_full, k_full[STAGES], v_full[STAGES], empty[STAGES]; + 1 KB to align
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
-  static_assert(D % 64 == 0, "a row is whole 64-wide swizzle boxes");
+  static_assert(D % 128 == 0, "O is whole m64n128 products");
   static_assert(BK == 64, "wgmma_ss is instantiated at N = 64");
+  static_assert(NC == 1 || NC == 2, "one or two consumer warpgroups");
   static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
@@ -469,10 +487,21 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
     // MN-major (LBO: from one 64-wide half of D to the next; SBO: 8 keys)
     constexpr uint32_t V_LBO = BK * P::ROW, V_SBO = 1024;
 
-    float acc[D / 8][4];
+    constexpr int NH = P::NH;
+    float acc[NH][16][4];  // O, in 128-wide parts of D
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+        acc[hh][n][0] = acc[hh][n][1] = acc[hh][n][2] = acc[hh][n][3] = 0.f;
+    auto fence_acc = [&]() {
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh) fence_regs(acc[hh]);
+    };
+    auto rescale_acc = [&](float a0, float a1) {
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh) rescale_rows(acc[hh], a0, a1);
+    };
     float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
 
     // S = Q K^T of one tile into `s`, issued and committed, not waited
@@ -496,11 +525,14 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
       const uint32_t vt = sV + (it % STAGES) * P::KV_BYTES;
       mbar_wait(v_full + 8 * (it % STAGES), (it / STAGES) & 1);
       wgmma_fence();
-      fence_regs(acc);
+      fence_acc();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)  // 16 keys at a time
-        wgmma_rs<D>(acc, p[kk],
-                    desc_sw128(vt + kk * 16 * P::ROW, V_LBO, V_SBO));
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh)     // 128 of D: two 64-wide boxes
+          wgmma_rs<128>(acc[hh], p[kk],
+                        desc_sw128(vt + hh * 2 * V_LBO + kk * 16 * P::ROW,
+                                   V_LBO, V_SBO));
       wgmma_commit();
     };
     // the online softmax of one tile's scores, masked only where the tile
@@ -550,18 +582,21 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
     // under the other's wgmmas.  A turn is one issue point: the first
     // Q K^T, each step of the loop, the last P V.  Both take the same
     // number of turns, warpgroup 0 idle ones where it has a tile less, so
-    // that every arrival on a barrier meets the other's wait.
-    static_assert(NC == 2, "the turns are for two consumer warpgroups");
+    // that every arrival on a barrier meets the other's wait.  A block of
+    // one consumer warpgroup (D = 256) takes no turns.
     int turn = 0;
-    const int turns = own_tiles(1) + 1;
+    const int turns = NC == 2 ? own_tiles(1) + 1 : 0;
     auto begin_turn = [&]() {
-      asm volatile("bar.sync %0, 256;\n" ::"r"(3 + wg) : "memory");
+      if constexpr (NC == 2)
+        asm volatile("bar.sync %0, 256;\n" ::"r"(3 + wg) : "memory");
     };
     auto end_turn = [&]() {
-      if (++turn < turns || wg == 0)
-        asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - wg) : "memory");
+      if constexpr (NC == 2) {
+        if (++turn < turns || wg == 0)
+          asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - wg) : "memory");
+      }
     };
-    if (wg == 1) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+    if (NC == 2 && wg == 1) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
     float s[BK / 8][4], a0, a1;
     uint32_t p[BK / 16][4];
     mbar_wait(q_full, 0);
@@ -575,17 +610,17 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
       begin_turn();
       qk(s, it + 1);
       if (__any_sync(0xffffffffu, a0 != 1.f || a1 != 1.f))
-        rescale_rows(acc, a0, a1);
+        rescale_acc(a0, a1);
       pv(p, it);
       end_turn();
       wgmma_wait<1>();  // the scores of tile it + 1
       softmax(s, it + 1, a0, a1);
       wgmma_wait<0>();  // P V of tile it: its slot is free
-      fence_regs(acc);
+      fence_acc();
       mbar_arrive(empty + 8 * (it % STAGES));
       pack(s, p);
     }
-    rescale_rows(acc, a0, a1);
+    rescale_acc(a0, a1);
     begin_turn();
     pv(p, n_own - 1);
     end_turn();
@@ -594,7 +629,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
       end_turn();
     }
     wgmma_wait<0>();
-    fence_regs(acc);
+    fence_acc();
     mbar_arrive(empty + 8 * ((n_own - 1) % STAGES));
     // key tiles above this warpgroup's diagonal: nothing to compute, but
     // each slot is released once the producer has filled it
@@ -617,9 +652,11 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
       unsigned char* box = stage + (n / 8) * BQ * P::ROW;
       const int c = (n % 8) ^ g;  // rows r0 and r0 + 8 are both g mod 8
       *reinterpret_cast<uint32_t*>(box + r0 * P::ROW + c * 16 + 4 * t) =
-          pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
+          pack_bf16(acc[n / 16][n % 16][0] * inv0,
+                    acc[n / 16][n % 16][1] * inv0);
       *reinterpret_cast<uint32_t*>(box + (r0 + 8) * P::ROW + c * 16 + 4 * t) =
-          pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
+          pack_bf16(acc[n / 16][n % 16][2] * inv1,
+                    acc[n / 16][n % 16][3] * inv1);
     }
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     bf16* op = o + ((size_t)b * Hq + h) * S * D;
@@ -1003,7 +1040,8 @@ static int launch_decode(const void* q, const void* k, const void* v,
 }
 
 // o: contiguous (B, Hq, S, D) bf16.  window <= 0 means no window.  Only
-// D = 128, the head dim of the dense configs served, is instantiated.
+// the head dims of the served configs are instantiated: 128 (the dense
+// family) and 256 (recurrentgemma-9b); another D is refused.
 extern "C" int fa_prefill(const void* q, const void* k, const void* v, void* o,
                           int B, int Hq, int Hkv, int S, int D, int causal,
                           int window, int qsb, int qsh, int qss, int ksb,
@@ -1015,12 +1053,18 @@ extern "C" int fa_prefill(const void* q, const void* k, const void* v, void* o,
     return launch_prefill<128>(q, k, v, o, B, Hq, Hkv, S, causal, window, qsb,
                                qsh, qss, ksb, ksh, kss, vsb, vsh, vss, scale,
                                st);
+  if (D == 256)
+    return launch_prefill<256>(q, k, v, o, B, Hq, Hkv, S, causal, window, qsb,
+                               qsh, qss, ksb, ksh, kss, vsb, vsh, vss, scale,
+                               st);
   return (int)cudaErrorInvalidValue;
 }
 
 // o: contiguous (B, Hq, D) bf16; kv_len: (B,) int32 on the card; part_o
 // (B*Hkv, ceil(S / split), Hq / Hkv, D) and part_ml (..., 2) f32 scratch.
-// `split` keys per block: a multiple of 128 up to 256.
+// `split` keys per block: a multiple of 128 up to 256 whose tiles fit the
+// block's shared memory (at D = 256 only 128: 256 keys would need 264 KB,
+// and the launch is refused).
 extern "C" int fa_decode(const void* q, const void* k, const void* v,
                          const void* kv_len, void* o, void* part_o,
                          void* part_ml, int B, int Hq, int Hkv, int S, int D,
@@ -1031,6 +1075,10 @@ extern "C" int fa_decode(const void* q, const void* k, const void* v,
   const cudaStream_t st = (cudaStream_t)stream;
   if (D == 128)
     return launch_decode<128>(q, k, v, kv_len, o, part_o, part_ml, B, Hq, Hkv,
+                              S, split, qsb, qsh, ksb, ksh, kss, vsb, vsh, vss,
+                              scale, st);
+  if (D == 256)
+    return launch_decode<256>(q, k, v, kv_len, o, part_o, part_ml, B, Hq, Hkv,
                               S, split, qsb, qsh, ksb, ksh, kss, vsb, vsh, vss,
                               scale, st);
   return (int)cudaErrorInvalidValue;

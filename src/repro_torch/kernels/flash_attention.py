@@ -22,8 +22,12 @@ probabilities to bf16 for the PV product; the plain versions do not, which
 the JAX tests' bf16 tolerance (2e-2) covers.  A wrapper takes the plain version only for
 tensors on the CPU; for a CUDA tensor it launches the kernel or raises, and
 counts the launch in ``_build.LAUNCHES``.  On the card both kernels take
-bf16 only (an f32 input raises ``TypeError``) and head dim 128, that of
-the dense configs served; another head dim raises ``ValueError``.
+bf16 only (an f32 input raises ``TypeError``) and the head dims of the
+served configs, 128 (the dense family) and 256 (recurrentgemma-9b);
+another head dim raises ``ValueError``.  K6 splits the keys by the largest
+of :data:`DECODE_SPLITS` up to :data:`DECODE_SPLIT` whose tiles fit a
+block's shared memory (:func:`decode_split`): 256 at D = 128, 128 at
+D = 256.
 """
 from __future__ import annotations
 
@@ -33,12 +37,33 @@ import math
 import torch
 
 from . import _build, ref
+from . import scaled_gemm as _sg
 
-HEAD_DIMS = (128,)        # the kernels' instantiations
+HEAD_DIMS = (128, 256)    # the kernels' instantiations
 MAX_GROUP = 16            # GQA group rows of one mma.sync tile (K6)
 DECODE_SPLIT = 256        # keys per K6 block (timed against 128: PERF.md)
 DECODE_SPLITS = (128, 256)    # the splits K6 takes (4 warps x 32 keys, smem)
 _INT_MAX = 2**31 - 1
+
+
+def decode_smem_bytes(d: int, split: int) -> int:
+    """K6's dynamic shared memory for one block: the K and V tiles of its
+    ``split`` keys (rows of D + 8 bf16), or the warps' merge buffers if
+    larger (``launch_decode`` in the CUDA text)."""
+    tiles = split * 2 * (d + 8) * 2
+    merge = 4 * 16 * (d + 2) * 4
+    return max(tiles, merge)
+
+
+def decode_split(d: int) -> int:
+    """The split K6 runs at head dim ``d``: the largest of
+    ``DECODE_SPLITS`` up to ``DECODE_SPLIT`` whose block fits."""
+    fits = [s for s in DECODE_SPLITS
+            if s <= DECODE_SPLIT
+            and decode_smem_bytes(d, s) <= _sg.SMEM_OPTIN]
+    if not fits:
+        raise ValueError(f"no K6 split fits a block at head dim {d}")
+    return max(fits)
 
 
 def _scale(d: int, scale) -> float:
@@ -139,7 +164,9 @@ def decode_scratch_shapes(b: int, hq: int, hkv: int, s: int, d: int,
 def decode_at_split(q, k, v, kv_len, split: int, *, scale=None):
     """Launch K6 with ``split`` keys per block on CUDA operands that
     :func:`decode_attention` has checked; counted as one launch of
-    ``decode_attention``, which calls it with :data:`DECODE_SPLIT`."""
+    ``decode_attention``, which calls it with :func:`decode_split`.  A
+    split whose tiles exceed the block's shared memory is refused by the
+    card (``_build.LaunchRefusedError``)."""
     if q.device.type != "cuda":
         raise ValueError("decode_at_split launches the CUDA kernel: the "
                          "operands must be on the card")
@@ -180,4 +207,4 @@ def decode_attention(q, k, v, kv_len, *, scale=None):
         return decode_attention_reference(q, k, v, kv_len, scale=scale)
     if hq // hkv > MAX_GROUP:
         raise ValueError(f"GQA group {hq // hkv} above {MAX_GROUP}")
-    return decode_at_split(q, k, v, kv_len, DECODE_SPLIT, scale=scale)
+    return decode_at_split(q, k, v, kv_len, decode_split(d), scale=scale)

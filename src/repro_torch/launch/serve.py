@@ -7,9 +7,13 @@ Port of ``repro.launch.serve``, on the card by default:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --max-seq 4096
 
 The default arch is qwen2.5-3b (dense, K5 and K6 on the card);
-mamba2-2.7b serves the ssm family, whose prefill runs K7 once per layer.
+mamba2-2.7b serves the ssm family, whose prefill runs K7 once per layer;
+recurrentgemma-9b the rglru family, whose local-attention layers run K5
+and K6 at head dim 256 over a ring of ``min(2048, --max-seq)`` slots.
 
 The flags are the JAX launcher's, without ``--mesh`` (serving across cards
 is ROADMAP queue 1) and with ``--device``.  ``--reduced`` is a real switch

@@ -8,9 +8,9 @@ Port of ``repro.models.api``:
     init_cache(cfg, batch, max_seq, device)  -> zeroed cache dict
 
 ``init_params`` takes an integer seed where the JAX function takes a key.
-The dense and ssm families are ported; ``moe`` and ``mla`` raise in
-``transformer.Transformer``, ``rglru`` here, until their slices (ROADMAP
-queue 1).  ``loss_fn`` waits for the training slice.  Entry
+The dense, ssm and rglru families are ported; ``moe`` and ``mla`` raise in
+``transformer.Transformer`` until their slice (ROADMAP queue 1, item 3).
+``loss_fn`` waits for the training slice.  Entry
 points run on the card unless the caller passes ``device="cpu"``; without
 a card and without that request they raise.
 """
@@ -18,11 +18,11 @@ from __future__ import annotations
 
 import torch
 
-from . import ssm, transformer
+from . import rglru, ssm, transformer
 from .config import ArchConfig
 
 _FAMS = {"dense": transformer, "moe": transformer, "mla": transformer,
-         "ssm": ssm}
+         "ssm": ssm, "rglru": rglru}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -39,8 +39,8 @@ def resolve_device(device=None) -> torch.device:
 def _mod(cfg: ArchConfig):
     if cfg.family not in _FAMS:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP queue 1: rglru, with a windowed K6)")
+            f"{cfg.name}: no {cfg.family} family in the port (the moe and "
+            "mla families raise until ROADMAP queue 1, item 3)")
     return _FAMS[cfg.family]
 
 

@@ -11,8 +11,13 @@ Tokens are chosen by greedy argmax.
 
 The cache lives on the engine's device and is written **in place**: a
 prefill copies every entry of its cache into the slot (the dense family's
-``k``/``v``, the ssm family's ``state``/``conv``, and ``len``), and each
-decode step updates each slot's part.  The engine runs on the card unless it is given
+``k``/``v``, the ssm family's ``state``/``conv``, the rglru family's ring
+``k``/``v`` with its ``state``/``conv``, and ``len``), and each decode step
+updates each slot's part.  Idle slots take part in every decode step and
+keep counting ``len``, as in the JAX engine: the dense family clamps their
+writes to the last cache position, the rglru family's ``len % W`` keeps
+them inside its ring of ``W`` slots and its valid count stays ``W``, so
+no index runs past a cache.  The engine runs on the card unless it is given
 ``device="cpu"``; without a card and without that request it raises.  The
 host-clock seconds of each prefill and each decode step (each ends in a
 read of the chosen tokens, which waits for the card) are kept in

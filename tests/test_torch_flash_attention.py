@@ -6,7 +6,9 @@ them against the JAX Pallas kernels run as the JAX tests run them
 (``interpret=True``) and against the JAX oracles ``ref.*``, with the sweeps
 of ``tests/test_kernels_flash_attention.py`` plus GQA, window and
 non-causal cases, a ragged S (which the Pallas kernel cannot take), a
-``kv_len`` above S and ``kv_len = 0``.  Tolerances are the JAX tests':
+``kv_len`` above S and ``kv_len = 0``, and recurrentgemma-9b's head dim
+256 (K5 with its window and GQA group 16, K6 over a ring cache read
+through strides).  Tolerances are the JAX tests':
 ``2e-5`` in f32, ``2e-2`` in bf16 (the parity contract of ROADMAP.md).
 The CUDA kernels themselves are held against these plain versions on the
 card by chip_smoke.py.
@@ -20,6 +22,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import scaled_gemm as sg
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -129,6 +132,50 @@ def test_decode_kv_len_zero_gives_zeros_as_the_pallas_kernel(rng):
                                             torch.from_numpy(kv_len))[0]).all()
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("window", [48, 128])
+def test_prefill_head_dim_256_window_group_16_matches_jax_kernel(rng, dtype,
+                                                                 window):
+    """recurrentgemma-9b's local attention: 16 query heads on one KV head
+    of 256, causal, a sliding window shorter and no shorter than S."""
+    (jq, q), (jk, k), (jv, v) = _qkv(rng, 1, 16, 1, 128, 256, dtype)
+    want = jops.attention(jq, jk, jv, causal=True, window=window,
+                          block_q=64, block_k=64, interpret=True)
+    got = ops.attention(q, k, v, causal=True, window=window)
+    _close(got, want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_decode_head_dim_256_over_a_strided_ring_matches_jax_kernel(rng,
+                                                                    dtype):
+    """recurrentgemma-9b's decode: a (B, W, Hkv, D) ring handed over
+    transposed, as a view; valid counts of 1, a partial ring and the whole
+    ring."""
+    b, hq, hkv, w, d = 3, 16, 1, 128, 256
+    (jq, q), (jk, k), (jv, v) = _qkv(rng, b, hq, hkv, w, d, dtype,
+                                     q_shape=(b, hq, d))
+    ring_k = k.transpose(1, 2).contiguous()            # (B, W, Hkv, D)
+    ring_v = v.transpose(1, 2).contiguous()
+    n_valid = np.array([1, 77, w], np.int32)
+    want = jops.decode_attention(jq, jk, jv, jnp.asarray(n_valid),
+                                 block_k=64, interpret=True)
+    got = ops.decode_attention(q, ring_k.transpose(1, 2),
+                               ring_v.transpose(1, 2),
+                               torch.from_numpy(n_valid))
+    _close(got, want, DTYPES[dtype][2])
+
+
+def test_decode_split_follows_the_block_shared_memory():
+    """256 keys a block at D = 128; at D = 256 their tiles would need
+    270,336 bytes, above the 232,448 a block may have, so 128."""
+    assert fa.decode_smem_bytes(128, 256) == 139264
+    assert fa.decode_smem_bytes(256, 256) == 270336 > sg.SMEM_OPTIN
+    assert fa.decode_smem_bytes(256, 128) == 135168
+    assert fa.decode_split(128) == 256 and fa.decode_split(256) == 128
+    with pytest.raises(ValueError, match="no K6 split"):
+        fa.decode_split(1024)
+
+
 def test_oracles_match_jax_oracles(rng):
     (jq, q), (jk, k), (jv, v) = _qkv(rng, 2, 4, 2, 100, 32, "f32")
     _close(ref.attention(q, k, v, causal=True, window=30),
@@ -186,8 +233,9 @@ def test_card_operand_contract(bad, exc):
         x, d = x[..., :80].contiguous(), 80
     with pytest.raises(exc):
         fa._check_card_operands({"q": x}, d)
-    fa._check_card_operands(
-        {"q": torch.zeros(1, 2, 32, 128, dtype=torch.bfloat16)}, 128)
+    for ok in (128, 256):       # the head dims the kernels are built for
+        fa._check_card_operands(
+            {"q": torch.zeros(1, 2, 32, ok, dtype=torch.bfloat16)}, ok)
 
 
 @pytest.mark.parametrize("s", [1, 31, 128, 4096, 4097])

@@ -175,8 +175,7 @@ def test_encoder_only_prefill_matches_jax_and_has_no_decode():
 
 
 @pytest.mark.parametrize("arch,family", [("qwen3-moe-235b-a22b", "moe"),
-                                         ("deepseek-v2-236b", "mla"),
-                                         ("recurrentgemma-9b", "rglru")])
+                                         ("deepseek-v2-236b", "mla")])
 def test_unported_families_raise(arch, family):
     cfg = configs.get_reduced(arch)
     assert cfg.family == family

@@ -184,9 +184,44 @@ def test_service_and_campaign_raise_without_cuda(monkeypatch, tmp_path):
         launch.main(["--generations", "1", "--workdir", str(tmp_path)])
 
 
-def test_subprocess_transport_is_not_ported():
-    with pytest.raises(ValueError, match="subprocess"):
-        EvalPool.of(EvaluationService(device="cpu"), transport="subprocess")
+def test_subprocess_transport_gives_inprocess_verdicts():
+    """Worker processes rebuild the service from its spec (device
+    included) and give the in-process statuses; the times are measured in
+    each process, so only their keys are compared."""
+    service = EvaluationService(device="cpu", bench_configs=SMALL[:1])
+    sources = [codegen.render_source(SEED_MXU),
+               codegen.render_source(SEED_MONOLITH),
+               "this is not python !!",
+               "GENOME = None\nimport torch\n"
+               "def run(a, b, a_scale, b_scale):\n"
+               "    return torch.zeros(a.shape[0], b.shape[1])\n"]
+    pool = EvalPool.of(service, transport="subprocess",
+                       retry_policy=NO_WAIT_POLICY)
+    try:
+        got = [pool.submit_async(s).result(timeout=300) for s in sources]
+        assert pool.stats()["transport"] == "subprocess"
+    finally:
+        pool.close()
+    want = [service.submit(s) for s in sources]
+    assert [r.status for r in got] == [r.status for r in want] == \
+        ["ok", "ok", "compile_error", "incorrect"]
+    assert [set(r.timings_us) for r in got] == \
+        [set(r.timings_us) for r in want]
+
+
+def test_launcher_evaluates_in_subprocess_workers_by_default(monkeypatch):
+    seen = []
+
+    def fake(generations, workdir, **kw):
+        seen.append(kw)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(launch, "run_campaign", fake)
+    for argv in ([], ["--transport", "inprocess", "--job-timeout-s", "5"]):
+        with pytest.raises(SystemExit):
+            launch.main(argv)
+    assert [(k["transport"], k["job_timeout_s"]) for k in seen] == \
+        [("subprocess", 600.0), ("inprocess", 5.0)]
 
 
 def test_writer_repairs_a_shared_memory_excess():

@@ -2,8 +2,8 @@
 
 Both engines get the same float32 weights (carried across by
 ``repro_torch.models.convert``) and the same prompts, as in
-``tests/test_serve.py`` (reduced qwen2.5-3b and mamba2-2.7b, ``slots=2``);
-greedy tokens must be identical.  Also: slots are reused, an idle slot that ticks past
+``tests/test_serve.py`` (reduced qwen2.5-3b, mamba2-2.7b and
+recurrentgemma-9b, ``slots=2``); greedy tokens must be identical.  Also: slots are reused, an idle slot that ticks past
 ``max_seq`` gives the same tokens as JAX with no error, and the entry
 points need a card unless the CPU is asked for.
 """
@@ -88,6 +88,26 @@ def test_mamba2_slots_reused():
     # the last prompt's 5 tokens and 2 decode steps (its first new token
     # came from the prefill)
     assert eng.cache["len"].tolist() == [5 + 2]
+
+
+def test_rglru_engine_tokens_match_jax_engine():
+    """The rglru family: the ring ``k``/``v``, ``state``, ``conv`` and
+    ``len`` go into the slot, one prompt passes the reduced window of 32,
+    and the tokens are the JAX engine's."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 128, n).astype(np.int32) for n in (5, 40, 9)]
+    got, want, eng = _serve_both(prompts, 6, slots=2, max_seq=64,
+                                 arch="recurrentgemma-9b")
+    assert len(got) == 3 and got == want
+    assert set(eng.cache) == {"k", "v", "state", "conv", "len"}
+    assert eng.cache["k"].shape[2] == 32
+
+
+def test_launcher_serves_rglru_on_the_cpu(capsys):
+    assert launch_serve.main(["--arch", "recurrentgemma-9b", "--reduced",
+                              "--device", "cpu", "--requests", "3",
+                              "--max-new", "3"]) == 0
+    assert "served 3 requests, 9 tokens" in capsys.readouterr().out
 
 
 def test_idle_slot_ticking_past_max_seq_matches_jax():
